@@ -2,26 +2,31 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version and the NumPy oracle at the geometries
-the scan path meets, drives the default MV scan path end to end, and times
-the kernel against the plain version at 1080p.  Every phase raises on a
-failure, so any failure exits nonzero.  The last two lines of standard
-output are one JSON line per kernel of the path and the result line
+Builds the port's CUDA kernels from the sources in this checkout (one
+``nvcc`` per source, all started together), holds each kernel against its
+plain PyTorch version and the NumPy oracle at the geometries the scan paths
+meet, drives every ported scan path end to end, and times each kernel
+against its plain version.  Every phase raises on a failure, so any failure
+exits nonzero.  The last two lines of standard output are one JSON line
+listing the kernels of the paths and the result line
 ``{"ok": true, "device": {...}}``.
 
 Phase 4 drives ``python -m mvtrim_tpu_torch``'s ``main`` on a synthetic
-1080p clip when the native host library (FFmpeg's libav*) loads.  Where it
-does not, the phase says so on its own line and drives the device half of
-the path instead: seeded 1080p activity masks through
-``MVClusterDetector`` and on through merging, segmentation and the cut
-decision.
+1080p clip, once per path (bits, words, grids, SAD), when the native host
+library (FFmpeg's libav*) loads.  Where it does not, the phase says so on
+its own line and drives the device half of each path instead, on seeded
+1080p data: activity masks (bits, words) and vote grids (grids) through
+``MVClusterDetector``, luma through ``SADDetector`` in the pipeline's
+cap-sized sub-scans with the carry threaded, each on through merging,
+segmentation and the cut decision.  The launch counts are set to 0 just
+before each path and read just after it.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -36,10 +41,32 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from mvtrim_tpu_torch import Config, GridGeometry, native, oracle  # noqa: E402
 from mvtrim_tpu_torch.models.mv_detector import MVClusterDetector  # noqa: E402
+from mvtrim_tpu_torch.models.sad_detector import (  # noqa: E402
+    SADDetector, sad_oracle_counts)
 from mvtrim_tpu_torch.ops import _build  # noqa: E402
 from mvtrim_tpu_torch.ops import cluster as cluster_ops  # noqa: E402
+from mvtrim_tpu_torch.ops import sad as sad_ops  # noqa: E402
+from mvtrim_tpu_torch.pipeline.pipeline import ProcessingPipeline  # noqa: E402
 
-KERNEL_REPLACES = "mvtrim_tpu/ops/cluster.py:444"
+# name -> (the wrapper whose count shows a launch, source, TPU kernel)
+KERNELS = {
+    "word_cluster_counts": (cluster_ops.cluster_words_op,
+                            "mvtrim_tpu_torch/csrc/word_cluster.cu",
+                            "mvtrim_tpu/ops/cluster.py:444"),
+    "cluster_map_counts": (cluster_ops.cluster_map_op,
+                           "mvtrim_tpu_torch/csrc/cluster_map.cu",
+                           "mvtrim_tpu/ops/cluster.py:123"),
+    "sad_block_grid": (sad_ops.sad_op,
+                       "mvtrim_tpu_torch/csrc/sad_block.cu",
+                       "mvtrim_tpu/ops/sad.py:269"),
+}
+# path -> the kernels it must launch
+PATH_KERNELS = {
+    "bits": ("word_cluster_counts",),
+    "words": ("word_cluster_counts",),
+    "grids": ("cluster_map_counts",),
+    "sad": ("sad_block_grid", "cluster_map_counts"),
+}
 GEOMETRIES = [  # (width, height, vertical_mask)
     (1920, 1080, 0.05),   # gw=120, not a multiple of 32
     (3840, 2160, 0.05),   # 4K
@@ -49,6 +76,20 @@ GEOMETRIES = [  # (width, height, vertical_mask)
     (512, 2048, 0.0),     # one word per row, margin 0
 ]
 BATCHES = (4096, 1, 777)
+VECTORS_NEEDED = (0, 1, 2, 255)
+SAD_GEOMETRIES = [  # (width, height)
+    (1920, 1080),   # 1080 = 67*16 + 8: a partial block row
+    (3840, 2160),   # 4K: the geometry of the lane-sliced TPU kernel K7
+    (320, 240),
+    (1000, 562),    # partial blocks on both axes; 4-byte loads
+    (3840, 96),     # the K7 geometry of the JAX package's tests
+]
+SAD_BATCHES = (1, 63, 64)
+# phase 5: frames a launch and device-resident batches (K1, K3); the SAD
+# window and its (label, geometry, windows rotated) cells
+TIMING_BATCH = (2048, 32)
+SAD_WINDOW = 64
+SAD_TIMING = (("1080p", (1920, 1080), 3), ("4K", (3840, 2160), 2))
 FPS = 25.0
 CLIP_SEC = 60.0
 MOTION_WINDOWS = ((5.0, 12.0), (40.0, 44.0))
@@ -68,12 +109,54 @@ def random_masks(rng, n: int, geom: GridGeometry):
     return active, np.packbits(active, axis=2, bitorder="little")
 
 
-def oracle_counts(active: np.ndarray, geom: GridGeometry) -> np.ndarray:
+def random_votes(rng, n: int, geom: GridGeometry) -> np.ndarray:
+    """Seeded uint8 vote grids [n, gh, gw]: votes 0..3 with a few cells at
+    254 and 255, so every threshold of VECTORS_NEEDED splits them."""
+    v = rng.integers(0, 4, size=(n, geom.gh, geom.gw), dtype=np.uint8)
+    top = rng.random(v.shape, dtype=np.float32)
+    v[top < 0.05] = 255
+    v[(top >= 0.05) & (top < 0.1)] = 254
+    return v
+
+
+def oracle_counts(grids: np.ndarray, geom: GridGeometry,
+                  vectors_needed: int = 1) -> np.ndarray:
     return np.concatenate([
         oracle.count_clusters_batch(
-            active[i:i + 512].astype(np.uint8), vectors_needed=1,
+            grids[i:i + 512], vectors_needed=vectors_needed,
             y_min=geom.y_min, y_max=geom.y_max)
-        for i in range(0, len(active), 512)])
+        for i in range(0, len(grids), 512)])
+
+
+def near_threshold_luma(rng, n: int, width: int, height: int, block: int,
+                        bound: int) -> np.ndarray:
+    """uint8 [n, H, W]: frame i+1 differs from frame i by a block SAD of
+    exactly bound-1, bound, bound+1 or 0 in each block, partial edge
+    blocks included.  A pixel differs by at most 128 with a mixed sign,
+    so one sign always stays in 0..255 (a partial block too small to
+    reach its target at 128 a pixel stays below it)."""
+    ys, xs = np.arange(height), np.arange(width)
+    by, bx = ys // block, xs // block
+    bh = np.minimum(block, height - by * block)
+    bw = np.minimum(block, width - bx * block)
+    # rank of each pixel inside the in-frame part of its block: the first
+    # `rem` ranks of a block take one more than the rest
+    rank = (ys % block)[:, None] * bw[None, :] + (xs % block)[None, :]
+    px = bh[:, None] * bw[None, :]
+    choices = np.array([bound - 1, bound, bound + 1, 0], np.int64)
+    gh, gw = -(-height // block), -(-width // block)
+    luma = np.empty((n, height, width), np.uint8)
+    luma[0] = rng.integers(40, 216, size=(height, width), dtype=np.uint8)
+    for i in range(1, n):
+        target = choices[rng.integers(0, 4, size=(gh, gw))]
+        t = np.minimum(target[by][:, bx], 128 * px)
+        d = (t // px + (rank < t % px)).astype(np.int16)
+        sign = rng.integers(0, 2, size=(height, width),
+                            dtype=np.int16) * 2 - 1
+        prev = luma[i - 1].astype(np.int16)
+        cur = prev + sign * d
+        luma[i] = np.where((cur < 0) | (cur > 255), prev - sign * d, cur)
+    return luma
 
 
 # --- phase 1 ---
@@ -99,8 +182,8 @@ def phase_environment() -> tuple[str, bool]:
         log("native host library unavailable: libav development packages "
             f"missing here ({', '.join(missing) or 'none reported'}); "
             f"{str(e).splitlines()[0]}")
-        log("phase 4 runs the device half of the path on seeded 1080p "
-            "masks instead of a decoded clip")
+        log("phase 4 runs the device half of each path on seeded 1080p "
+            "data instead of a decoded clip")
         return card, False
     log("native host library: loaded")
     return card, True
@@ -112,7 +195,8 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     _build.load_library()
     info = _build.build_info
-    log(f"kernel build: {info.get('seconds', 0.0):.3f} s nvcc, "
+    log(f"kernel build: {info.get('seconds', 0.0):.3f} s nvcc for "
+        f"{len(_build.sources())} sources, "
         f"{time.perf_counter() - t0:.3f} s to build and load "
         f"({os.path.relpath(_build.library_path())})")
     for line in info.get("report", "").splitlines():
@@ -121,8 +205,8 @@ def phase_build() -> None:
 
 # --- phase 3 ---
 
-def phase_correctness(rng) -> int:
-    """Kernel vs plain (CPU) vs oracle, exact.  Returns max |kernel-plain|."""
+def phase_correctness_words(rng) -> int:
+    """K1 vs plain (CPU) vs oracle, exact.  Returns max |kernel-plain|."""
     worst = 0
     for width, height, vm in GEOMETRIES:
         cfg = Config(vertical_mask=vm)
@@ -137,20 +221,130 @@ def phase_correctness(rng) -> int:
             motion = motion.cpu().numpy()
             plain = cluster_ops.word_cluster_counts_plain(
                 torch.from_numpy(words), geom).numpy()
-            expect = oracle_counts(active, geom)
+            expect = oracle_counts(active.astype(np.uint8), geom)
             need = oracle.effective_clusters_needed(cfg.clusters_needed)
             worst = max(worst, int(np.abs(counts.astype(np.int64)
                                           - plain).max()))
             ok = (np.array_equal(counts, plain)
                   and np.array_equal(counts, expect)
                   and np.array_equal(motion, expect >= need))
-            log(f"{width}x{height} vm={vm} B={b}: kernel == plain == "
-                f"oracle: {ok} (mean count {expect.mean():.1f}, "
+            log(f"word_cluster {width}x{height} vm={vm} B={b}: kernel == "
+                f"plain == oracle: {ok} (mean count {expect.mean():.1f}, "
                 f"motion {int(motion.sum())}/{b})")
             if not ok:
                 raise AssertionError(
-                    f"kernel disagrees at {width}x{height} B={b}: "
-                    f"{int((counts != expect).sum())} counts differ")
+                    f"word_cluster kernel disagrees at {width}x{height} "
+                    f"B={b}: {int((counts != expect).sum())} counts differ")
+    return worst
+
+
+def phase_correctness_map(rng) -> int:
+    """K3 on uint8 votes at VECTORS_NEEDED 0, 1, 2, 255 and on int32 grids
+    at the SAD bound, vs the plain version (on the card, same tensor) and
+    the NumPy oracle, exact.  Returns max |kernel-plain|."""
+    cfg0 = Config()
+    bound = sad_ops.sad_threshold_sum(cfg0.sad_threshold, cfg0.block_size)
+    worst = 0
+    for width, height, vm in GEOMETRIES:
+        cfg = Config(vertical_mask=vm)
+        geom = GridGeometry.build(width, height, cfg)
+        need = oracle.effective_clusters_needed(cfg.clusters_needed)
+        for b in BATCHES:
+            votes = random_votes(rng, b, geom)
+            grid = rng.integers(0, 2 * bound, size=votes.shape,
+                                dtype=np.int32)
+            cases = [(votes, vn) for vn in VECTORS_NEEDED] + [(grid, bound)]
+            summary = []
+            for host, thr in cases:
+                dev = torch.from_numpy(host).cuda()
+                counts, motion = cluster_ops.cluster_map_op(
+                    dev, geom, thr, cfg.clusters_needed)
+                plain = cluster_ops.cluster_map_counts_plain(dev, geom, thr)
+                torch.cuda.synchronize()
+                counts = counts.cpu().numpy()
+                motion = motion.cpu().numpy()
+                plain = plain.cpu().numpy()
+                expect = oracle_counts(host, geom, thr)
+                worst = max(worst, int(np.abs(counts.astype(np.int64)
+                                              - plain).max(initial=0)))
+                ok = (np.array_equal(counts, plain)
+                      and np.array_equal(counts, expect)
+                      and np.array_equal(motion, expect >= need))
+                summary.append(f"{host.dtype}>={thr} mean "
+                               f"{expect.mean():.1f}")
+                if not ok:
+                    raise AssertionError(
+                        f"cluster_map kernel disagrees at {width}x{height} "
+                        f"B={b} {host.dtype} threshold {thr}: "
+                        f"{int((counts != expect).sum())} counts differ")
+            log(f"cluster_map {width}x{height} vm={vm} B={b}: kernel == "
+                f"plain == oracle at {', '.join(summary)}")
+    return worst
+
+
+def phase_correctness_sad(rng) -> int:
+    """K6 (block SAD, then K3 on its grid) vs the plain version on the
+    same tensor, exact, on blocks built to sum to bound-1, bound and
+    bound+1; the NumPy oracle where its int64 copy stays small.  Returns
+    max |kernel grid - plain grid|."""
+    cfg = Config()
+    bs = cfg.block_size
+    bound = sad_ops.sad_threshold_sum(cfg.sad_threshold, bs)
+    need = oracle.effective_clusters_needed(cfg.clusters_needed)
+    kw = dict(block_size=bs, clusters_needed=cfg.clusters_needed)
+    worst = 0
+    n = max(SAD_BATCHES) + 1
+    for width, height in SAD_GEOMETRIES:
+        geom = GridGeometry.build(width, height, cfg)
+        luma = near_threshold_luma(rng, n, width, height, bs, bound)
+        for b in SAD_BATCHES:
+            host = luma[n - b - 1:]
+            dev = torch.from_numpy(host).cuda()
+            variants = [("aligned", dev)]
+            if b == 63:
+                # a base address off 16 bytes takes narrower loads
+                buf = torch.empty(dev.numel() + 1, dtype=torch.uint8,
+                                  device=dev.device)
+                variants.append(("offset by 1 byte",
+                                 buf[1:].view(dev.shape).copy_(dev)))
+            plain_grid = sad_ops.sad_block_grid_plain(dev, bs)
+            plain_counts = cluster_ops.cluster_map_counts_plain(
+                plain_grid, geom, bound)
+            near = [int((plain_grid == bound + k).sum()) for k in (-1, 0, 1)]
+            for name, t in variants:
+                grid = sad_ops._launch_grid(t, geom, bs)
+                counts, motion = sad_ops.sad_op(
+                    t, geom, sad_threshold=cfg.sad_threshold, **kw)
+                torch.cuda.synchronize()
+                err = int((grid.to(torch.int64) - plain_grid).abs().max())
+                worst = max(worst, err)
+                ok = (err == 0 and torch.equal(counts, plain_counts)
+                      and torch.equal(motion, plain_counts >= need))
+                checked = "plain"
+                if width * height <= 320 * 240 or b == 1:
+                    expect = sad_oracle_counts(
+                        host, geom, sad_threshold=cfg.sad_threshold,
+                        block_size=bs)
+                    ok = ok and np.array_equal(counts.cpu().numpy(), expect)
+                    checked = "plain == oracle"
+                log(f"sad_block {width}x{height} B={b} ({name}, "
+                    f"{sad_ops._vector_width(t, bs)}-byte loads): kernel == "
+                    f"{checked}: {ok} (max |grid diff| {err}; blocks at "
+                    f"bound-1/bound/bound+1 {near}; mean count "
+                    f"{plain_counts.float().mean():.1f})")
+                if not ok:
+                    raise AssertionError(
+                        f"sad_block kernel disagrees at {width}x{height} "
+                        f"B={b} ({name})")
+        # MVT_SAD_THRESHOLD=0: every block active, off-grid neighbours too
+        dev = torch.from_numpy(luma[:2]).cuda()
+        zero = sad_ops.sad_op(dev, geom, sad_threshold=0.0, **kw)[0]
+        plain = cluster_ops.cluster_map_counts_plain(
+            sad_ops.sad_block_grid_plain(dev, bs), geom, 0)
+        torch.cuda.synchronize()
+        if not torch.equal(zero, plain):
+            raise AssertionError(f"sad threshold 0 at {width}x{height}: "
+                                 f"{zero.tolist()} != {plain.tolist()}")
     return worst
 
 
@@ -160,10 +354,31 @@ def _segments_text(segments) -> list[tuple[float, float]]:
     return [(s.start, s.end) for s in segments]
 
 
+def _decide(motion_ts, cfg: Config):
+    ts = oracle.merge_timestamps(motion_ts)
+    segments = oracle.segments_from_timestamps(
+        ts, max_gap_sec=cfg.max_gap_sec, padding_sec=cfg.padding_sec,
+        duration=CLIP_SEC)
+    return oracle.decide_cut(segments, CLIP_SEC, cfg.min_savings_pct)
+
+
+def _check_windows(cut, cfg: Config, last: float, name: str) -> None:
+    """The motion windows, padded by PADDING_SEC, are what a cut keeps;
+    a window's last motion frame lies ``last`` seconds after its end."""
+    is_cut, segments = cut
+    if not is_cut or len(segments) != len(MOTION_WINDOWS):
+        raise AssertionError(f"{name}: unexpected cut {cut}")
+    for (lo, hi), seg in zip(MOTION_WINDOWS, segments):
+        if not (abs(seg.start - (lo - cfg.padding_sec)) < 0.02
+                and abs(seg.end - (hi + last + cfg.padding_sec)) < 0.02):
+            raise AssertionError(f"{name}: segment {seg} does not match "
+                                 f"the window {lo}-{hi}")
+
+
 def synthetic_masks(seed: int, geom: GridGeometry):
     """A 60 s, 25 fps 1080p scan's activity masks: isolated noise cells
     (never 4-adjacent, so never a cluster) in every frame, plus a moving
-    blob inside MOTION_WINDOWS.  Returns (bits, pts)."""
+    blob inside MOTION_WINDOWS.  Returns (active bool, pts)."""
     rng = np.random.default_rng(seed)
     n = int(CLIP_SEC * FPS)
     pts = np.arange(n) / FPS
@@ -176,136 +391,286 @@ def synthetic_masks(seed: int, geom: GridGeometry):
             x = 4 + int(i * 0.8) % (geom.gw - 20)
             y = geom.gh // 3
             active[i, y:y + 10, x:x + 12] |= rng.random((10, 12)) < 0.7
-    return np.packbits(active, axis=2, bitorder="little"), pts
+    return active, pts
 
 
-def _scan_masks(detector: MVClusterDetector, bits: np.ndarray, pts, words):
+def synthetic_votes(seed: int, geom: GridGeometry, need: int):
+    """The same scan as uint8 vote grids: the masks' active cells hold
+    votes need..need+5, and a third of the other cells hold votes below
+    ``need`` (MVs that fall short of the threshold, never a cluster)."""
+    rng = np.random.default_rng(seed + 1)
+    active, pts = synthetic_masks(seed, geom)
+    votes = np.where(rng.random(active.shape, dtype=np.float32) < 0.33,
+                     rng.integers(0, max(1, need), size=active.shape,
+                                  dtype=np.uint8), 0).astype(np.uint8)
+    votes[active] = rng.integers(need, need + 6, size=int(active.sum()),
+                                 dtype=np.uint8)
+    return votes, pts
+
+
+def _scan_mv(detector: MVClusterDetector, payload: str, data, pts):
     """The pipeline's feeder over 30 s chunks: dispatch every chunk, then
     resolve in order."""
-    chunk = int(30 * FPS)
+    chunk = int(Config().chunk_duration_sec * FPS)
     pending = []
     for lo in range(0, len(pts), chunk):
-        if words:
-            data = cluster_ops.repack_bits_words(bits[lo:lo + chunk],
-                                                 detector.geom)
-            pending.append((pts[lo:lo + chunk],
-                            detector.scan_words_async(data)))
+        part = data[lo:lo + chunk]
+        if payload == "bits":
+            resolve = detector.scan_bits_async(part)
+        elif payload == "words":
+            resolve = detector.scan_words_async(
+                cluster_ops.repack_bits_words(part, detector.geom))
         else:
-            pending.append((pts[lo:lo + chunk],
-                            detector.scan_bits_async(bits[lo:lo + chunk])))
+            resolve = detector.scan_votes_async(part)
+        pending.append((pts[lo:lo + chunk], resolve))
     motion_ts = []
     for p, resolve in pending:
         motion_ts.extend(p[resolve()].tolist())
     return motion_ts
 
 
-def _decide(motion_ts, cfg: Config):
-    ts = oracle.merge_timestamps(motion_ts)
-    segments = oracle.segments_from_timestamps(
-        ts, max_gap_sec=cfg.max_gap_sec, padding_sec=cfg.padding_sec,
-        duration=CLIP_SEC)
-    return oracle.decide_cut(segments, CLIP_SEC, cfg.min_savings_pct)
-
-
-def phase_end_to_end_masks(seed: int) -> dict:
+def mv_path(seed: int, payload: str):
+    """Seeded 1080p data of one MV payload and its oracle-backend result;
+    returns the run that drives the CUDA detector over it."""
     cfg = Config()
     geom = GridGeometry.build(1920, 1080, cfg)
-    bits, pts = synthetic_masks(seed, geom)
+    if payload == "grids":
+        data, pts = synthetic_votes(seed, geom, cfg.vectors_needed)
+    else:
+        active, pts = synthetic_masks(seed, geom)
+        data = np.packbits(active, axis=2, bitorder="little")
     ref = MVClusterDetector(1920, 1080, Config(scan_backend="oracle"))
-    ref_ts = _scan_masks(ref, bits, pts, words=False)
+    ref_ts = _scan_mv(ref, payload, data, pts)
     ref_cut = _decide(ref_ts, cfg)
-    timings = {}
-    for words in (False, True):
-        name = "words" if words else "bits"
+    _check_windows(ref_cut, cfg, -1 / FPS, f"{payload} oracle")
+
+    def run() -> dict:
         det = MVClusterDetector(1920, 1080, cfg)  # auto -> cuda
         assert det.backend == "cuda", det.backend
         t0 = time.perf_counter()
-        motion_ts = _scan_masks(det, bits, pts, words)
+        motion_ts = _scan_mv(det, payload, data, pts)
         scan_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         is_cut, segments = _decide(motion_ts, cfg)
         decide_s = time.perf_counter() - t0
         same = (motion_ts == ref_ts and is_cut == ref_cut[0]
                 and segments == ref_cut[1])
-        log(f"e2e masks [{name}] 1080p {len(pts)} frames: "
-            f"{len(motion_ts)} motion frames, cut={is_cut}, segments "
-            f"{_segments_text(segments)}; identical to the oracle "
-            f"backend: {same}; scan {scan_s * 1e3:.3f} ms, "
-            f"merge+segment+decide {decide_s * 1e3:.3f} ms")
+        log(f"e2e {payload} 1080p {len(pts)} frames: {len(motion_ts)} "
+            f"motion frames, cut={is_cut}, segments "
+            f"{_segments_text(segments)}; identical to the oracle backend: "
+            f"{same}; scan {scan_s * 1e3:.3f} ms, merge+segment+decide "
+            f"{decide_s * 1e3:.3f} ms")
         if not same:
-            raise AssertionError(f"{name}: differs from the oracle backend")
-        timings[name] = {"scan_ms": scan_s * 1e3,
-                         "decide_ms": decide_s * 1e3}
-    # the blob windows, padded by PADDING_SEC, are what a cut keeps
-    for (lo, hi), seg in zip(MOTION_WINDOWS, ref_cut[1]):
-        if not (abs(seg.start - (lo - cfg.padding_sec)) < 0.05
-                and abs(seg.end - (hi - 1 / FPS + cfg.padding_sec)) < 0.05):
-            raise AssertionError(f"segment {seg} does not match {lo}-{hi}")
-    if len(ref_cut[1]) != len(MOTION_WINDOWS) or not ref_cut[0]:
-        raise AssertionError(f"unexpected cut {ref_cut}")
-    return timings
+            raise AssertionError(f"{payload}: differs from the oracle "
+                                 "backend")
+        return {"scan_ms": scan_s * 1e3, "decide_ms": decide_s * 1e3}
+
+    return run
 
 
-def phase_end_to_end_clip(workdir: str) -> dict:
-    from mvtrim_tpu_torch.cli import main as cli_main
-    from mvtrim_tpu_torch.pipeline.pipeline import (ProcessingPipeline,
-                                                    TimingCollector)
+class LumaClip:
+    """A seeded 60 s, 25 fps luma clip: a static textured background, +-2
+    sensor noise on every frame, and a bright 200x120 box moving 8 pixels
+    a frame inside MOTION_WINDOWS."""
 
-    clip = os.path.join(workdir, "cam1080.mp4")
-    t0 = time.perf_counter()
-    native.synthesize(clip, width=1920, height=1080, fps=FPS,
-                      duration=CLIP_SEC, codec="libx264", noise=2,
-                      motion_windows=MOTION_WINDOWS)
-    log(f"synthesized {clip} in {time.perf_counter() - t0:.3f} s")
-    results = {}
-    for name, env in (("oracle", {"MVT_SCAN_BACKEND": "oracle"}),
-                      ("bits", {}), ("words", {"MVT_SCAN_INPUT": "words"})):
-        out = os.path.join(workdir, f"out_{name}.mp4")
-        metrics = os.path.join(workdir, f"metrics_{name}.jsonl")
-        saved = {k: os.environ.get(k) for k in
-                 ("MVT_SCAN_BACKEND", "MVT_SCAN_INPUT", "MVT_METRICS_JSON")}
-        os.environ.update(env, MVT_METRICS_JSON=metrics)
-        try:
-            TimingCollector.clear()
+    def __init__(self, seed: int, width: int, height: int):
+        rng = np.random.default_rng(seed)
+        self.width, self.height = width, height
+        self.background = rng.integers(30, 200, size=(height, width),
+                                       dtype=np.int16)
+        # seven noise planes, cycled: consecutive frames never share one
+        self.noise = rng.integers(-2, 3, size=(7, height, width),
+                                  dtype=np.int16)
+        self.pts = np.arange(int(CLIP_SEC * FPS)) / FPS
+
+    def frames(self, lo: int, hi: int) -> np.ndarray:
+        out = np.empty((hi - lo, self.height, self.width), np.uint8)
+        y = self.height * 2 // 5
+        for k, i in enumerate(range(lo, hi)):
+            f = self.background + self.noise[i % 7]
+            if any(a <= self.pts[i] < b for a, b in MOTION_WINDOWS):
+                x = 100 + (8 * i) % (self.width - 400)
+                f[y:y + 120, x:x + 200] = 255
+            np.clip(f, 0, 255, out=f)
+            out[k] = f
+        return out
+
+
+def sad_sub_scans(cfg: Config, width: int, height: int, n: int):
+    """(lo, hi, threads_carry) of each native scan call the pipeline would
+    make over n frames: 30 s chunks, cut into sub-scans at the SAD frame
+    cap, the carry threaded inside a chunk and not across chunks."""
+    pipe = ProcessingPipeline("", "", cfg=cfg)
+    n_threads = pipe._scan_thread_count(
+        max(1, math.ceil(CLIP_SEC / cfg.chunk_duration_sec)))
+    cap = max(16, (512 * 1024 * 1024) // (width * height) // n_threads)
+    chunk = int(cfg.chunk_duration_sec * FPS)
+    max_frames = min(cap, math.ceil(cfg.chunk_duration_sec * FPS) + 64)
+    for c0 in range(0, n, chunk):
+        c1 = min(c0 + chunk, n)
+        for lo in range(c0, c1, max_frames):
+            yield lo, min(lo + max_frames, c1), lo > c0
+
+
+def sad_path(seed: int):
+    """Seeded 1080p luma through SADDetector (CUDA) sub-scan by sub-scan,
+    each held against SADDetector(torch) on the CPU on the same frames."""
+    cfg = Config()
+    width, height = 1920, 1080
+
+    def run() -> dict:
+        clip = LumaClip(seed, width, height)
+        det = SADDetector(width, height, cfg)  # auto -> cuda
+        assert det.backend == "cuda", det.backend
+        ref = SADDetector(width, height, Config(scan_backend="torch"))
+        motion_ts, ref_ts, calls = [], [], 0
+        scan_s = 0.0
+        carry = None
+        for lo, hi, threaded in sad_sub_scans(cfg, width, height,
+                                              len(clip.pts)):
+            frames = clip.frames(lo, hi)
+            carry = carry if threaded else None
             t0 = time.perf_counter()
-            rc = cli_main([clip, out])
-            wall = time.perf_counter() - t0
-            # the motion timestamps themselves: one more scan, same config
-            pipe = ProcessingPipeline(clip, out, cfg=Config.from_env())
-            with native.VideoReader(clip) as r:
-                pipe.duration = r.duration
-                fps, w, h = r.fps, r.width, r.height
-            motion_ts = sorted(pipe._parallel_scan(fps, w, h).motion_ts)
-            TimingCollector.clear()
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k, None)
-                else:
-                    os.environ[k] = v
-        if rc != 0:
-            raise AssertionError(f"{name}: cli exit {rc}")
-        with native.VideoReader(out) as r:
-            out_dur = r.duration
-        with open(metrics) as f:
-            rec = json.loads(f.readlines()[-1])
-        results[name] = (motion_ts, out_dur, rec)
-        log(f"e2e clip [{name}] rc={rc} wall {wall:.3f} s, output "
-            f"{out_dur:.3f} s, saved {rec['saved_pct']:.3f}%, phases_us "
-            f"{json.dumps(rec['phases_us'])}")
-    ref_ts, ref_dur, _ = results["oracle"]
-    for name in ("bits", "words"):
-        motion_ts, out_dur, _ = results[name]
+            motion = det.scan_luma(frames, carry=carry)
+            scan_s += time.perf_counter() - t0
+            expect = ref.scan_luma(frames, carry=carry)
+            if not np.array_equal(motion, expect):
+                raise AssertionError(
+                    f"sad: frames {lo}-{hi} differ from the plain build")
+            motion_ts.extend(clip.pts[lo:hi][motion].tolist())
+            ref_ts.extend(clip.pts[lo:hi][expect].tolist())
+            carry = frames[-1].copy()
+            calls += 1
+        t0 = time.perf_counter()
+        cut = _decide(motion_ts, cfg)
+        decide_s = time.perf_counter() - t0
+        same = motion_ts == ref_ts and cut == _decide(ref_ts, cfg)
+        log(f"e2e sad 1080p {len(clip.pts)} frames in {calls} sub-scans: "
+            f"{len(motion_ts)} motion frames, cut={cut[0]}, segments "
+            f"{_segments_text(cut[1])}; identical to SADDetector(torch): "
+            f"{same}; scan {scan_s * 1e3:.3f} ms, merge+segment+decide "
+            f"{decide_s * 1e3:.3f} ms")
+        if not same:
+            raise AssertionError("sad: differs from the plain build")
+        _check_windows(cut, cfg, 0.0, "sad")
+        return {"scan_ms": scan_s * 1e3, "decide_ms": decide_s * 1e3}
+
+    return run
+
+
+CLIP_REFS = {"oracle": {"MVT_SCAN_BACKEND": "oracle"},
+             "sad_oracle": {"MVT_SCAN_BACKEND": "oracle",
+                            "MVT_PIPELINE": "sad"}}
+CLIP_PATHS = {  # path -> (environment, the reference run it must equal)
+    "bits": ({}, "oracle"),
+    "words": ({"MVT_SCAN_INPUT": "words"}, "oracle"),
+    "grids": ({"MVT_SCAN_INPUT": "grids"}, "oracle"),
+    "sad": ({"MVT_PIPELINE": "sad"}, "sad_oracle"),
+}
+
+
+def clip_run(clip: str, workdir: str, name: str, env: dict):
+    """``python -m mvtrim_tpu_torch``'s main on the clip under ``env``;
+    (motion timestamps, output duration, metrics record)."""
+    from mvtrim_tpu_torch.cli import main as cli_main
+    from mvtrim_tpu_torch.pipeline.pipeline import TimingCollector
+
+    out = os.path.join(workdir, f"out_{name}.mp4")
+    metrics = os.path.join(workdir, f"metrics_{name}.jsonl")
+    keys = ("MVT_SCAN_BACKEND", "MVT_SCAN_INPUT", "MVT_PIPELINE",
+            "MVT_METRICS_JSON")
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ.update(env, MVT_METRICS_JSON=metrics)
+    try:
+        TimingCollector.clear()
+        t0 = time.perf_counter()
+        rc = cli_main([clip, out])
+        wall = time.perf_counter() - t0
+        # the motion timestamps themselves: one more scan, same config
+        cfg = Config.from_env()
+        pipe = ProcessingPipeline(clip, out, cfg=cfg)
+        with native.VideoReader(clip) as r:
+            pipe.duration = r.duration
+            fps, w, h = r.fps, r.width, r.height
+        kind = "sad" if cfg.pipeline_mode == "sad" else "mv"
+        motion_ts = sorted(pipe._parallel_scan(kind, fps, w, h).motion_ts)
+        TimingCollector.clear()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if rc != 0:
+        raise AssertionError(f"{name}: cli exit {rc}")
+    with native.VideoReader(out) as r:
+        out_dur = r.duration
+    with open(metrics) as f:
+        rec = json.loads(f.readlines()[-1])
+    log(f"e2e clip [{name}] rc={rc} wall {wall:.3f} s, output "
+        f"{out_dur:.3f} s, saved {rec['saved_pct']:.3f}%, "
+        f"{len(motion_ts)} motion frames, phases_us "
+        f"{json.dumps(rec['phases_us'])}")
+    return motion_ts, out_dur, rec
+
+
+def clip_path(clip: str, workdir: str, name: str, refs: dict):
+    env, ref_name = CLIP_PATHS[name]
+
+    def run() -> dict:
+        motion_ts, out_dur, rec = clip_run(clip, workdir, name, env)
+        ref_ts, ref_dur, _ = refs[ref_name]
         if motion_ts != ref_ts or abs(out_dur - ref_dur) > 1e-3:
-            raise AssertionError(f"{name}: differs from the oracle backend")
-    return {k: v[2]["phases_us"] for k, v in results.items()}
+            raise AssertionError(f"{name}: differs from {ref_name}")
+        return rec["phases_us"]
+
+    return run
+
+
+def counted(run) -> dict:
+    """Run one path with every launch count set to 0 just before it;
+    the counts just after."""
+    for wrapper, _, _ in KERNELS.values():
+        wrapper.launches = 0
+    run()
+    return {name: spec[0].launches for name, spec in KERNELS.items()}
+
+
+def phase_main_paths(seed: int, have_native: bool) -> dict:
+    """Every ported path, each counted on its own: path -> launches."""
+    launches = {}
+    if have_native:
+        with tempfile.TemporaryDirectory() as workdir:
+            clip = os.path.join(workdir, "cam1080.mp4")
+            t0 = time.perf_counter()
+            native.synthesize(clip, width=1920, height=1080, fps=FPS,
+                              duration=CLIP_SEC, codec="libx264", noise=2,
+                              motion_windows=MOTION_WINDOWS)
+            log(f"synthesized {clip} in {time.perf_counter() - t0:.3f} s")
+            refs = {name: clip_run(clip, workdir, name, env)
+                    for name, env in CLIP_REFS.items()}
+            for name in CLIP_PATHS:
+                launches[name] = counted(clip_path(clip, workdir, name,
+                                                   refs))
+    else:
+        runs = {p: mv_path(seed, p) for p in ("bits", "words", "grids")}
+        runs["sad"] = sad_path(seed)
+        for name, run in runs.items():
+            launches[name] = counted(run)
+    for path, names in PATH_KERNELS.items():
+        log(f"kernel launches in the {path} path: {launches[path]}")
+        for name in names:
+            if launches[path][name] == 0:
+                raise AssertionError(
+                    f"the {path} path never launched {name}")
+    return launches
 
 
 # --- phase 5 ---
 
 def _time(fn, batches, iters: int) -> tuple[float, torch.Tensor]:
     """ms per call over `iters` calls rotating through `batches`; the
-    counts of every call are kept and summed after the clock stops."""
+    outputs of every call are kept and summed after the clock stops."""
     outs = []
     for i in range(3):
         fn(batches[i % len(batches)])
@@ -317,13 +682,29 @@ def _time(fn, batches, iters: int) -> tuple[float, torch.Tensor]:
         outs.append(fn(batches[i % len(batches)]))
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters, torch.stack(outs).sum()
+    return (start.elapsed_time(stop) / iters,
+            torch.stack(outs).sum(dtype=torch.int64))
 
 
-def phase_timing(rng, card: str) -> tuple[float, float]:
+def _turns(fns: dict, batches, refs, iters: dict) -> dict:
+    """Time each function in turns (a, b, b, a, ...): mean ms per call
+    and the runs; every checksum must equal the plain version's."""
+    names = list(fns)
+    runs: dict[str, list[float]] = {}
+    for name in names + names[::-1]:
+        ms, checksum = _time(fns[name], batches, iters[name])
+        expect = sum(refs[i % len(batches)] for i in range(iters[name]))
+        if int(checksum) != expect:
+            raise AssertionError(f"{name}: checksum {int(checksum)} != "
+                                 f"{expect}")
+        runs.setdefault(name, []).append(ms)
+    return {name: (sum(r) / len(r), r) for name, r in runs.items()}
+
+
+def phase_timing_words(rng, card: str) -> tuple[float, float]:
     cfg = Config()
     geom = GridGeometry.build(1920, 1080, cfg)
-    b, n_batches = 2048, 32
+    b, n_batches = TIMING_BATCH
     batches, ref = [], []
     for _ in range(n_batches):
         _, bits = random_masks(rng, b, geom)
@@ -339,22 +720,14 @@ def phase_timing(rng, card: str) -> tuple[float, float]:
     def plain(w):
         return cluster_ops.word_cluster_counts_plain(w, geom)
 
-    runs = {}
-    for name, fn, iters in (("plain", plain, 64), ("kernel", kernel, 512),
-                            ("kernel", kernel, 512), ("plain", plain, 64)):
-        ms, checksum = _time(fn, batches, iters)
-        expect = sum(ref[i % n_batches] for i in range(iters))
-        if int(checksum) != expect:
-            raise AssertionError(f"{name}: checksum {int(checksum)} != "
-                                 f"{expect}")
-        runs.setdefault(name, []).append(ms)
-    k_ms = sum(runs["kernel"]) / 2
-    p_ms = sum(runs["plain"]) / 2
-    log(f"timing 1080p B={b} over {n_batches} batches ({mbytes:.1f} MB) on "
-        f"{card}: kernel {k_ms * 1e3:.3f} us/batch "
-        f"({b / k_ms * 1e3:.0f} frames/s; runs {runs['kernel']} ms), "
+    t = _turns({"plain": plain, "kernel": kernel}, batches, ref,
+               {"plain": 64, "kernel": 512})
+    (k_ms, k_runs), (p_ms, p_runs) = t["kernel"], t["plain"]
+    log(f"word_cluster timing 1080p B={b} over {n_batches} batches "
+        f"({mbytes:.1f} MB) on {card}: kernel {k_ms * 1e3:.3f} us/batch "
+        f"({b / k_ms * 1e3:.0f} frames/s; runs {k_runs} ms), "
         f"plain {p_ms * 1e3:.3f} us/batch ({b / p_ms * 1e3:.0f} frames/s; "
-        f"runs {runs['plain']} ms)")
+        f"runs {p_runs} ms)")
 
     # where a launch's time goes: host enqueue vs the kernel on the card
     iters = 256
@@ -366,7 +739,7 @@ def phase_timing(rng, card: str) -> tuple[float, float]:
     torch.cuda.synchronize()
     log(f"host enqueue per kernel call (wrapper + launch): {host_us:.3f} us")
     log(f"kernel device time per launch (torch.profiler): "
-        f"{_profiled_kernel_us(kernel, batches)}")
+        f"{_profiled_kernel_us(kernel, batches, 'word_cluster_kernel')}")
 
     # a batch far past the L2 cache: the kernel's own bandwidth
     big = torch.cat(batches)
@@ -374,17 +747,125 @@ def phase_timing(rng, card: str) -> tuple[float, float]:
     reps = [_time(kernel, halves, 64)[0] for _ in range(3)]
     big_ms = sorted(reps)[1]
     nbytes = halves[0].numel() * 4 + len(halves[0]) * 5
-    log(f"kernel 1080p B={len(halves[0])} ({nbytes / 1e6:.1f} MB/launch): "
-        f"median of {[round(r * 1e3, 3) for r in reps]} = "
-        f"{big_ms * 1e3:.3f} us/launch, {nbytes / big_ms / 1e9:.3f} TB/s "
-        f"of 3.35 TB/s peak, {len(halves[0]) / big_ms * 1e3:.0f} frames/s")
+    log(f"word_cluster kernel 1080p B={len(halves[0])} "
+        f"({nbytes / 1e6:.1f} MB/launch): median of "
+        f"{[round(r * 1e3, 3) for r in reps]} = {big_ms * 1e3:.3f} "
+        f"us/launch, {nbytes / big_ms / 1e9:.3f} TB/s of 3.35 TB/s peak, "
+        f"{len(halves[0]) / big_ms * 1e3:.0f} frames/s")
     return k_ms, p_ms
 
 
-def _profiled_kernel_us(fn, batches) -> str:
-    """Mean device time of the word_cluster kernel over 64 calls, and the
-    card's busy share across those calls (host clock, profiler running),
-    from a torch.profiler trace."""
+def phase_timing_map(seed: int, card: str) -> tuple[float, float]:
+    """K3 at 1080p, B = 2048 uint8 vote grids a launch (16.7 MB), 32
+    device-resident batches (534 MB, past the L2)."""
+    cfg = Config()
+    geom = GridGeometry.build(1920, 1080, cfg)
+    b, n_batches = TIMING_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    batches = [torch.randint(0, 4, (b, geom.gh, geom.gw), dtype=torch.uint8,
+                             device="cuda", generator=gen)
+               for _ in range(n_batches)]
+    thr = cfg.vectors_needed
+    ref = [int(cluster_ops.cluster_map_counts_plain(v, geom, thr).sum())
+           for v in batches]
+
+    def kernel(v):
+        return cluster_ops.cluster_map_op(v, geom, thr,
+                                          cfg.clusters_needed)[0]
+
+    def plain(v):
+        return cluster_ops.cluster_map_counts_plain(v, geom, thr)
+
+    t = _turns({"plain": plain, "kernel": kernel}, batches, ref,
+               {"plain": 64, "kernel": 256})
+    (k_ms, k_runs), (p_ms, p_runs) = t["kernel"], t["plain"]
+    mb = b * geom.gh * geom.gw / 1e6
+    log(f"cluster_map timing 1080p B={b} uint8 ({mb:.1f} MB/launch) on "
+        f"{card}: kernel {k_ms * 1e3:.3f} us/launch ({mb / k_ms:.3f} GB/s, "
+        f"{b / k_ms * 1e3:.0f} frames/s; runs {k_runs} ms), plain "
+        f"{p_ms * 1e3:.3f} us/launch (runs {p_runs} ms)")
+    log(f"cluster_map kernel device time per launch (torch.profiler): "
+        f"{_profiled_kernel_us(kernel, batches, 'cluster_map_kernel')}")
+    return k_ms, p_ms
+
+
+def phase_timing_sad(seed: int, card: str) -> dict:
+    """K6 on device-resident windows of 1 + 64 frames, rotated past the
+    L2: the kernel alone, the plain version, the whole op (K6 + K3), and
+    the H2D copy of one window from pinned memory; at 1080p and 4K."""
+    cfg = Config()
+    bs = cfg.block_size
+    bound = sad_ops.sad_threshold_sum(cfg.sad_threshold, bs)
+    b = SAD_WINDOW
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    out = {}
+    for label, (width, height), n_win in SAD_TIMING:
+        geom = GridGeometry.build(width, height, cfg)
+        wins = [torch.randint(0, 256, (b + 1, height, width),
+                              dtype=torch.uint8, device="cuda",
+                              generator=gen) for _ in range(n_win)]
+        plain_grids = [sad_ops.sad_block_grid_plain(w, bs) for w in wins]
+        ref_grid = [int(g.sum(dtype=torch.int64)) for g in plain_grids]
+        ref_counts = [int(cluster_ops.cluster_map_counts_plain(
+            g, geom, bound).sum()) for g in plain_grids]
+        del plain_grids
+
+        def kernel(w, geom=geom):
+            return sad_ops._launch_grid(w, geom, bs)
+
+        def plain(w):
+            return sad_ops.sad_block_grid_plain(w, bs)
+
+        def whole(w, geom=geom):
+            return sad_ops.sad_op(w, geom, sad_threshold=cfg.sad_threshold,
+                                  block_size=bs,
+                                  clusters_needed=cfg.clusters_needed)[0]
+
+        t = _turns({"plain": plain, "kernel": kernel}, wins, ref_grid,
+                   {"plain": 8, "kernel": 32})
+        op_ms, op_runs = _turns({"op": whole}, wins, ref_counts,
+                                {"op": 32})["op"]
+        (k_ms, k_runs), (p_ms, p_runs) = t["kernel"], t["plain"]
+
+        # H2D of one window from pinned memory
+        pinned = torch.empty(wins[0].shape, dtype=torch.uint8,
+                             pin_memory=True)
+        pinned.copy_(wins[0])
+        dst = torch.empty_like(wins[0])
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        dst.copy_(pinned, non_blocking=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(8):
+            dst.copy_(pinned, non_blocking=True)
+        stop.record()
+        torch.cuda.synchronize()
+        h2d_ms = start.elapsed_time(stop) / 8
+        if not torch.equal(dst, wins[0]):
+            raise AssertionError("H2D copy of a window differs")
+
+        nbytes = (b + 1) * height * width
+        log(f"sad_block timing {label} B={b} ({nbytes / 1e6:.1f} MB/window, "
+            f"{n_win} windows rotated) on {card}: kernel "
+            f"{k_ms * 1e3:.3f} us/window ({nbytes / k_ms / 1e9:.3f} TB/s of "
+            f"3.35 TB/s peak counting each plane once, "
+            f"{b / k_ms * 1e3:.0f} frames/s; runs {k_runs} ms); plain "
+            f"{p_ms * 1e3:.3f} us/window (runs {p_runs} ms); op (SAD + "
+            f"cluster_map) {op_ms * 1e3:.3f} us/window (runs {op_runs} ms); "
+            f"H2D from pinned memory {h2d_ms * 1e3:.3f} us/window "
+            f"({nbytes / h2d_ms / 1e6:.3f} GB/s)")
+        out[label] = {"ms": k_ms, "plain_ms": p_ms, "op_ms": op_ms,
+                      "h2d_ms": h2d_ms}
+        del wins, pinned, dst
+        torch.cuda.empty_cache()
+    return out
+
+
+def _profiled_kernel_us(fn, batches, kernel_name: str) -> str:
+    """Mean device time of a kernel over 64 calls, and the card's busy
+    share across those calls (host clock, profiler running), from a
+    torch.profiler trace."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -396,7 +877,7 @@ def _profiled_kernel_us(fn, batches) -> str:
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     for ev in prof.key_averages():
-        if "word_cluster_kernel" in ev.key:
+        if kernel_name in ev.key:
             dev_us = getattr(ev, "device_time_total",
                              getattr(ev, "cuda_time_total", 0.0))
             if dev_us <= 0:
@@ -415,30 +896,34 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     rng = np.random.default_rng(args.seed)
+    t_start = time.perf_counter()
 
     card, have_native = phase_environment()
     phase_build()
-    worst = phase_correctness(rng)
+    worst = {"word_cluster_counts": phase_correctness_words(rng),
+             "cluster_map_counts": phase_correctness_map(rng),
+             "sad_block_grid": phase_correctness_sad(rng)}
+    log(f"phases 1-3 done at {time.perf_counter() - t_start:.3f} s")
 
-    cluster_ops.cluster_words_op.launches = 0
-    if have_native:
-        with tempfile.TemporaryDirectory() as workdir:
-            phase_end_to_end_clip(workdir)
-    else:
-        phase_end_to_end_masks(args.seed)
-    launches = cluster_ops.cluster_words_op.launches
-    log(f"word_cluster kernel launches in the main-path run: {launches}")
-    if launches == 0:
-        raise AssertionError("the main path never launched the kernel")
+    launches = phase_main_paths(args.seed, have_native)
+    log(f"phase 4 done at {time.perf_counter() - t_start:.3f} s")
 
-    k_ms, p_ms = phase_timing(rng, card)
+    times = {"word_cluster_counts": phase_timing_words(rng, card),
+             "cluster_map_counts": phase_timing_map(args.seed, card)}
+    sad = phase_timing_sad(args.seed, card)
+    first = sad[SAD_TIMING[0][0]]
+    times["sad_block_grid"] = (first["ms"], first["plain_ms"])
+    log(f"phase 5 done at {time.perf_counter() - t_start:.3f} s")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(json.dumps({"kernels": [{
-        "name": "word_cluster_counts", "route": "cuda",
-        "source": "mvtrim_tpu_torch/csrc/word_cluster.cu",
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": worst, "ms": k_ms, "plain_ms": p_ms}]}))
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces,
+        "launches": sum(launches[p][name] for p, names
+                        in PATH_KERNELS.items() if name in names),
+        "max_abs_err": worst[name], "ms": times[name][0],
+        "plain_ms": times[name][1]}
+        for name, (_, source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,7 @@
-"""Detector models: the codec-MV cluster detector."""
+"""Detector models: the codec-MV cluster detector and the pixel-domain
+SAD detector."""
 
 from .mv_detector import MVClusterDetector
+from .sad_detector import SADDetector
 
-__all__ = ["MVClusterDetector"]
+__all__ = ["MVClusterDetector", "SADDetector"]

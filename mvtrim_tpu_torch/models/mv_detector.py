@@ -1,11 +1,12 @@
-"""MVClusterDetector — the motion detector of the default scan path.
+"""MVClusterDetector — the motion detector of the MV scan paths.
 
-The bits/words half of ``mvtrim_tpu/models/mv_detector.py``: bit-packed
-activity masks (or their int32 word layout) go to the device in batches
-of ``device_batch`` frames, and each batch comes back as per-frame motion
-booleans.  Dispatch is asynchronous: ``scan_*_async`` returns a
-zero-argument resolver that waits for its batches and returns motion [N],
-so the pipeline's feeder overlaps device work with host decode.
+The bits/words/grids part of ``mvtrim_tpu/models/mv_detector.py``:
+bit-packed activity masks (or their int32 word layout), or uint8 vote
+grids, go to the device in batches of ``device_batch`` frames, and each
+batch comes back as per-frame motion booleans.  Dispatch is asynchronous:
+``scan_*_async`` returns a zero-argument resolver that waits for its
+batches and returns motion [N], so the pipeline's feeder overlaps device
+work with host decode.
 """
 
 from __future__ import annotations
@@ -38,6 +39,26 @@ def resolve_backend(requested: str) -> str:
     return requested
 
 
+def stage_and_decide(rows: np.ndarray, device: torch.device, op):
+    """Stage one batch in pinned host memory, copy it to ``device``
+    without blocking, decide it with ``op(tensor) -> motion bool``, and
+    copy the motion back into a pinned buffer behind an event.
+
+    Returns (host, pending) with pending = (done, staged, on_device,
+    motion): the caller keeps ``pending`` until it has waited on ``done``
+    (the pinned ``staged`` must not be reused while its copy may still
+    run), then reads ``host``.
+    """
+    staged = torch.from_numpy(rows).pin_memory()
+    on_device = staged.to(device, non_blocking=True)
+    motion = op(on_device)
+    host = torch.empty(motion.shape, dtype=torch.bool, pin_memory=True)
+    host.copy_(motion, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(device))
+    return host, (done, staged, on_device, motion)
+
+
 class MVClusterDetector:
     """Per-video detector: packed activity masks -> motion decisions."""
 
@@ -55,12 +76,35 @@ class MVClusterDetector:
         else:
             self.device = torch.device("cpu")
 
-    # --- paths outside the ported slice ---
+    # --- forward over host-scattered vote grids (grids payload) ---
 
     def scan_votes_async(self, grids: np.ndarray):
-        raise RuntimeError(
-            "the grids payload (MVT_SCAN_INPUT=grids) is not ported to "
-            "mvtrim_tpu_torch yet: ROADMAP.md queue 1 item 7")
+        """Dispatch vote grids uint8 [N, gh, gw]; return a resolver for
+        motion [N].  A cell is active at votes >= VECTORS_NEEDED, and
+        the vote-level cluster rule decides each frame."""
+        n = grids.shape[0]
+        if n == 0:
+            return lambda: np.zeros((0,), bool)
+        if self.backend == "oracle":
+            counts = oracle.count_clusters_batch(
+                grids, vectors_needed=self.cfg.vectors_needed,
+                y_min=self.geom.y_min, y_max=self.geom.y_max)
+            motion = counts >= oracle.effective_clusters_needed(
+                self.cfg.clusters_needed)
+            return lambda: motion
+
+        def op(votes):
+            return cluster_ops.cluster_map_op(
+                votes, self.geom, self.cfg.vectors_needed,
+                self.cfg.clusters_needed)[1]
+
+        return self._dispatch(lambda lo, hi: grids[lo:hi], n, op)
+
+    def scan_votes(self, grids: np.ndarray) -> np.ndarray:
+        """Host entry: vote grids uint8 [N, gh, gw] -> motion bool [N]."""
+        return self.scan_votes_async(grids)()
+
+    # --- a path outside the ported slices ---
 
     def scan_raw_mvs_async(self, mvs: np.ndarray, counts: np.ndarray):
         raise RuntimeError(
@@ -91,21 +135,25 @@ class MVClusterDetector:
                 self.cfg.clusters_needed)
             return lambda: motion
 
-        return self._words_dispatch(
+        return self._dispatch(
             lambda lo, hi: cluster_ops.repack_bits_words(
-                bits[lo:hi], self.geom), n)
+                bits[lo:hi], self.geom), n, self._words_op)
 
     def scan_bits(self, bits: np.ndarray) -> np.ndarray:
         """Host entry: packed masks uint8 [N, gh, gwb] -> motion bool [N]."""
         return self.scan_bits_async(bits)()
 
-    def _words_dispatch(self, get_rows, n: int):
-        """The one batch/dispatch/resolve loop over word rows, shared by
-        the bits and words inputs.  ``get_rows(lo, hi) -> int32
-        [hi-lo, used]`` supplies each batch.
+    def _words_op(self, words: torch.Tensor) -> torch.Tensor:
+        return cluster_ops.cluster_words_op(
+            words, self.geom, self.cfg.clusters_needed)[1]
+
+    def _dispatch(self, get_rows, n: int, op):
+        """The one batch/dispatch/resolve loop, shared by the bits, words
+        and grids inputs.  ``get_rows(lo, hi)`` supplies each batch as a
+        numpy array and ``op(tensor) -> motion bool`` decides it.
 
         On CUDA each batch is staged in pinned host memory, copied to the
-        card without blocking, counted by the kernel, and its motion is
+        card without blocking, decided by the kernel, and its motion is
         copied back into a pinned buffer behind an event.  Each future
         holds its staging buffers until the resolver has waited on that
         event: a pinned buffer must not be reused while a copy from it
@@ -115,26 +163,12 @@ class MVClusterDetector:
         futures = []
         for lo in range(0, n, db):
             hi = min(lo + db, n)
-            rows = get_rows(lo, hi)
+            rows = np.ascontiguousarray(get_rows(lo, hi))
             if self.backend == "torch":
-                _, motion = cluster_ops.cluster_words_op(
-                    torch.from_numpy(np.ascontiguousarray(rows)), self.geom,
-                    self.cfg.clusters_needed)
-                futures.append((lo, hi, motion, None))
+                futures.append((lo, hi, op(torch.from_numpy(rows)), None))
                 continue
-            stream = torch.cuda.current_stream(self.device)
-            staged = torch.empty(rows.shape, dtype=torch.int32,
-                                 pin_memory=True)
-            staged.numpy()[...] = rows
-            words = staged.to(self.device, non_blocking=True)
-            _, motion = cluster_ops.cluster_words_op(
-                words, self.geom, self.cfg.clusters_needed)
-            host = torch.empty((hi - lo,), dtype=torch.bool,
-                               pin_memory=True)
-            host.copy_(motion, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(stream)
-            futures.append((lo, hi, host, (done, staged, words, motion)))
+            futures.append((lo, hi) + stage_and_decide(rows, self.device,
+                                                       op))
 
         def resolve():
             out = np.zeros((n,), bool)
@@ -162,7 +196,7 @@ class MVClusterDetector:
             bits = words.view(np.uint8).reshape(n, self.geom.gh, -1)[
                 :, :, :gwb]
             return self.scan_bits_async(np.ascontiguousarray(bits))
-        return self._words_dispatch(lambda lo, hi: words[lo:hi], n)
+        return self._dispatch(lambda lo, hi: words[lo:hi], n, self._words_op)
 
     def scan_words(self, words: np.ndarray) -> np.ndarray:
         """Host entry: word-layout masks int32 [N, gh*gww] -> motion [N]."""

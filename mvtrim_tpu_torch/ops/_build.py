@@ -1,15 +1,18 @@
 """Build and load the port's CUDA kernels at first use.
 
-``nvcc`` compiles ``csrc/word_cluster.cu`` into a shared library with a
-plain C interface, under ``build/mvtrim_tpu_torch/`` at the root of the
-checkout, and ``ctypes`` loads it.  The library's name carries a hash of
-the source, so an edited ``.cu`` builds anew and an unchanged one is
-reused.  Nothing here runs at import: the CPU build never needs ``nvcc``.
+``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
+C interface, under ``build/mvtrim_tpu_torch/`` at the root of the
+checkout, and ``ctypes`` loads it.  The sources compile in parallel, one
+``nvcc`` each, and are linked in one more step.  The library's name
+carries a hash of all the sources, so an edited, added or removed ``.cu``
+builds anew and an unchanged set is reused.  Nothing here runs at import:
+the CPU build never needs ``nvcc``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -18,12 +21,26 @@ import threading
 import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "word_cluster.cu")
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "mvtrim_tpu_torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = [*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points of the library and their argument types (every pointer
+# and the stream as c_void_p, or ctypes would cut them to 32 bits)
+SIGNATURES = {
+    # words, batch, gh, gww, gw, y_min, y_max, need, counts, motion, stream
+    "mvt_word_cluster_counts": [_P] + [_I] * 7 + [_P, _P, _P],
+    # votes, is_int32, batch, gh, gw, y_min, y_max, thr, need, counts,
+    # motion, stream
+    "mvt_cluster_map_counts": [_P] + [_I] * 8 + [_P, _P, _P],
+    # luma, batch, height, width, block, gh, gw, vec, grid, stream
+    "mvt_sad_block_grid": [_P] + [_I] * 7 + [_P, _P],
+}
 
 _lock = threading.Lock()
 _lib = None
@@ -31,6 +48,10 @@ _lib = None
 # compiler's report (ptxas register and shared-memory use); empty when the
 # library was already built
 build_info: dict = {}
+
+
+def sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
 def _nvcc() -> str:
@@ -48,29 +69,56 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libmvt_word_cluster_{digest}.so")
+    digest = hashlib.sha256()
+    for src in sources():
+        digest.update(os.path.basename(src).encode() + b"\0")
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    return os.path.join(BUILD_DIR,
+                        f"libmvt_kernels_{digest.hexdigest()[:16]}.so")
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Start every command at once, wait for all; their stderr, or
+    RuntimeError naming the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}) on {cmd[-1]}:\n{err.strip()}")
+    return [err.strip() for _, err in outs]
 
 
 def _build(so_path: str) -> None:
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s) + f".{tag}.o")
+            for s in srcs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-            f"{proc.stderr.strip()}")
+    try:
+        reports = _run_all([[nvcc, *COMPILE_FLAGS, "-c", "-o", o, s]
+                            for s, o in zip(srcs, objs)])
+        tmp = f"{so_path}.{tag}"
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     # rename: a concurrent process sees either no library or a whole one
     os.replace(tmp, so_path)
     build_info.update(seconds=time.perf_counter() - t0, path=so_path,
-                      report=proc.stderr.strip())
+                      report="\n".join(r for r in reports if r))
 
 
 def load_library():
-    """The kernel library, built first if this source has not been."""
+    """The kernel library, built first if these sources have not been."""
     global _lib
     with _lock:
         if _lib is not None:
@@ -79,9 +127,9 @@ def load_library():
         if not os.path.exists(so_path):
             _build(so_path)
         lib = ctypes.CDLL(so_path)
-        fn = lib.mvt_word_cluster_counts
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
         _lib = lib
         return lib

@@ -1,15 +1,22 @@
-"""Word-domain cluster count: the device op of the default scan path.
+"""Cluster counts: the device ops of the MV scan paths.
 
-The word-domain half of ``mvtrim_tpu/ops/cluster.py``.  Each int32 word
-holds 32 grid cells of one row (bit k of word c is cell x = 32c + k).  A
-cell counts when it is active, has an active 4-neighbour and lies in the
-centre window (x in [1, gw-2], y in [y_min, y_max)); a frame has motion
-when its count reaches max(1, CLUSTERS_NEEDED).
+Two halves of ``mvtrim_tpu/ops/cluster.py``, each one op with a
+hand-written CUDA kernel and a plain PyTorch version of the same math:
 
-``cluster_words_op`` is the one entry: on a CUDA tensor it launches the
-hand-written kernel (``csrc/word_cluster.cu``), on a CPU tensor it runs
-``word_cluster_counts_plain``, the same math in plain PyTorch.  Nothing
-falls back from one to the other.
+* word domain (``cluster_words_op``, ``csrc/word_cluster.cu``): the bits
+  and words payloads.  Each int32 word holds 32 grid cells of one row
+  (bit k of word c is cell x = 32c + k).  A cell counts when it is
+  active, has an active 4-neighbour and lies in the centre window.
+* vote level (``cluster_map_op``, ``csrc/cluster_map.cu``): the grids
+  payload, and the second half of the SAD path.  A cell of a uint8 or
+  int32 grid counts when it and one of its 4-neighbours reach a runtime
+  threshold and it lies in the centre window; off-grid neighbours read as
+  vote 0, compared with the threshold like any other cell.
+
+The centre window is x in [1, gw-2], y in [y_min, y_max); a frame has
+motion when its count reaches max(1, CLUSTERS_NEEDED).  On a CUDA tensor
+each op launches its kernel, on a CPU tensor it runs the plain version.
+Nothing falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import threading
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mvtrim_tpu.core.types import GridGeometry
 
@@ -156,3 +164,88 @@ def cluster_words_op(words: torch.Tensor, geom: GridGeometry,
 
 
 cluster_words_op.launches = 0
+
+
+# --- vote level: the grids payload and the SAD grid ---
+
+_VOTE_DTYPES = (torch.uint8, torch.int32)
+
+
+def cluster_map_counts_plain(votes: torch.Tensor, geom: GridGeometry,
+                             threshold: int) -> torch.Tensor:
+    """Plain PyTorch cluster counts: votes [B, gh, gw] (uint8 or int32)
+    -> int32 [B], with a runtime ``threshold``.
+
+    The math of the JAX ``cluster_counts_traced``: a centre cell counts
+    when min(v, max of its 4 neighbours) >= threshold, neighbours off the
+    grid reading as vote 0.
+    """
+    v = votes.to(torch.int32)
+    p = F.pad(v, (1, 1, 1, 1))  # zero votes around the grid
+    nmax = torch.maximum(
+        torch.maximum(p[:, 1:-1, :-2], p[:, 1:-1, 2:]),
+        torch.maximum(p[:, :-2, 1:-1], p[:, 2:, 1:-1]))
+    hit = torch.minimum(v, nmax) >= threshold
+    center = torch.zeros((geom.gh, geom.gw), dtype=torch.bool,
+                         device=v.device)
+    center[max(geom.y_min, 0):geom.y_max, 1:max(1, geom.gw - 1)] = True
+    return (hit & center).sum(dim=(1, 2), dtype=torch.int32)
+
+
+def _check_votes(votes: torch.Tensor, geom: GridGeometry) -> None:
+    if votes.dtype not in _VOTE_DTYPES:
+        raise TypeError(f"votes must be uint8 or int32, got {votes.dtype}")
+    if votes.dim() != 3 or tuple(votes.shape[1:]) != (geom.gh, geom.gw):
+        raise ValueError(
+            f"votes must be [B, {geom.gh}, {geom.gw}], got "
+            f"{tuple(votes.shape)}")
+    if not votes.is_contiguous():
+        raise ValueError("votes must be contiguous")
+
+
+def _launch_map(votes: torch.Tensor, geom: GridGeometry, threshold: int,
+                need: int):
+    from ._build import load_library
+
+    lib = load_library()
+    b = votes.shape[0]
+    counts = torch.empty((b,), dtype=torch.int32, device=votes.device)
+    motion = torch.empty((b,), dtype=torch.bool, device=votes.device)
+    with torch.cuda.device(votes.device):
+        stream = torch.cuda.current_stream(votes.device).cuda_stream
+        err = lib.mvt_cluster_map_counts(
+            votes.data_ptr(), int(votes.dtype == torch.int32), b, geom.gh,
+            geom.gw, geom.y_min, geom.y_max, threshold, need,
+            counts.data_ptr(), motion.data_ptr(), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"cluster_map kernel launch failed: CUDA error {err}")
+    return counts, motion
+
+
+def cluster_map_op(votes: torch.Tensor, geom: GridGeometry, threshold: int,
+                   clusters_needed: int):
+    """votes [B, gh, gw] uint8 or int32 -> (counts int32 [B], motion bool
+    [B]), a cell active at ``threshold`` (a runtime int).
+
+    A CUDA tensor goes to the CUDA kernel (``cluster_map_op.launches``
+    counts those launches), a CPU tensor to ``cluster_map_counts_plain``;
+    any other device raises.
+    """
+    _check_votes(votes, geom)
+    # the kernel compares in int32
+    threshold = max(-(1 << 31), min(int(threshold), (1 << 31) - 1))
+    need = max(1, clusters_needed)
+    if votes.device.type == "cuda":
+        counts, motion = _launch_map(votes, geom, threshold, need)
+        with _launch_lock:
+            cluster_map_op.launches += 1
+        return counts, motion
+    if votes.device.type == "cpu":
+        counts = cluster_map_counts_plain(votes, geom, threshold)
+        return counts, counts >= need
+    raise RuntimeError(
+        f"cluster_map_op runs on cuda or cpu tensors, not {votes.device}")
+
+
+cluster_map_op.launches = 0

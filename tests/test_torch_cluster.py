@@ -9,6 +9,8 @@ which runs only where a card is present (``python -m pytest -m cuda
 tests/test_torch_cluster.py``).
 """
 
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -172,13 +174,36 @@ class TestWrapper:
             _build.load_library()
 
     def test_library_name_follows_the_source(self, monkeypatch, tmp_path):
+        """The library's name hashes every source: an edited, added or
+        removed ``.cu`` gives a new name, an unchanged set the same."""
         src = tmp_path / "k.cu"
         src.write_text("// one\n")
-        monkeypatch.setattr(_build, "SOURCE", str(src))
+        monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
         first = _build.library_path()
+        assert _build.library_path() == first
         src.write_text("// two\n")
-        assert _build.library_path() != first
+        second = _build.library_path()
+        assert second != first
+        (tmp_path / "l.cu").write_text("// three\n")
+        assert _build.library_path() not in (first, second)
+        (tmp_path / "l.cu").unlink()
+        assert _build.library_path() == second
         assert first.startswith(_build.BUILD_DIR)
+
+    def test_every_source_is_built_and_bound(self):
+        """Each csrc/*.cu is in the build, and each C entry point the
+        wrappers call has its argument types declared."""
+        names = {os.path.basename(s) for s in _build.sources()}
+        assert {"word_cluster.cu", "cluster_map.cu",
+                "sad_block.cu"} <= names
+        assert set(_build.SIGNATURES) == {
+            "mvt_word_cluster_counts", "mvt_cluster_map_counts",
+            "mvt_sad_block_grid"}
+        for src in _build.sources():
+            with open(src) as f:
+                text = f.read()
+            assert any(f'extern "C" int {name}(' in text
+                       for name in _build.SIGNATURES), src
 
 
 @pytest.mark.cuda

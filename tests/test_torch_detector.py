@@ -87,10 +87,16 @@ class TestDetector:
             MVClusterDetector(640, 480, Config(scan_backend=backend))
 
     def test_unported_payloads_raise(self):
+        """mv_raw (item 8) still raises; the grids payload (item 7) is
+        ported and decides as the JAX detector does."""
         det = MVClusterDetector(640, 480, Config(scan_backend="torch"))
-        with pytest.raises(RuntimeError, match="queue 1 item 7"):
-            det.scan_votes_async(np.zeros((1, det.geom.gh, det.geom.gw),
-                                          np.uint8))
+        rng = np.random.default_rng(8)
+        grids = rng.integers(0, 4, size=(20, det.geom.gh, det.geom.gw),
+                             dtype=np.uint8)
+        np.testing.assert_array_equal(
+            det.scan_votes_async(grids)(),
+            JaxDetector(640, 480, Config(scan_backend="xla")).scan_votes(
+                grids))
         with pytest.raises(RuntimeError, match="queue 1 item 8"):
             det.scan_raw_mvs_async(np.zeros((1, 8, 4), np.int16),
                                    np.ones((1,), np.int32))

@@ -2,7 +2,8 @@
 
 The port's plain PyTorch build (``scan_backend="torch"``) must reach the
 same motion timestamps and cut decision as the JAX pipeline (XLA build),
-for both MV payloads; what the port does not cover yet must fail loudly.
+for the bits, words and grids payloads; what the port does not cover yet
+must fail loudly.  The SAD scan has its own file, test_torch_sad.py.
 """
 
 import json
@@ -71,7 +72,7 @@ class TestSingleFile:
             (theirs.time_removed, theirs.saved_pct)
         assert 50.0 < ours.saved_pct < 80.0
         fps, w, h = probe(motion_clip)
-        ts_ours = sorted(ours._parallel_scan(fps, w, h).motion_ts)
+        ts_ours = sorted(ours._parallel_scan("mv", fps, w, h).motion_ts)
         ts_theirs = sorted(theirs._parallel_scan("mv", fps, w, h).motion_ts)
         assert ts_ours == ts_theirs and len(ts_ours) > 50
         with native.VideoReader(str(tmp_path / "ours.mp4")) as a, \
@@ -89,15 +90,51 @@ class TestSingleFile:
         assert p.run() == 1
 
     @pytest.mark.parametrize("cfg", [
-        Config(scan_backend="torch", pipeline_mode="sad"),
-        Config(scan_backend="torch", scan_input="grids"),
         Config(scan_backend="torch", scan_input="mv_raw"),
-    ], ids=["sad", "grids", "mv_raw"])
+    ], ids=["mv_raw"])
     def test_unported_paths_fail(self, static_clip, tmp_path, capsys, cfg):
         out = str(tmp_path / "o.mp4")
         assert ProcessingPipeline(static_clip, out, cfg=cfg).run() == 1
         assert "ROADMAP.md queue 1 item" in capsys.readouterr().out
         assert not os.path.exists(out)
+
+    def test_grids_matches_jax_pipeline(self, motion_clip, tmp_path):
+        """MVT_SCAN_INPUT=grids: uint8 vote grids through the cluster-map
+        op give the JAX grids run's timestamps, savings and output."""
+        ours = ProcessingPipeline(
+            motion_clip, str(tmp_path / "ours.mp4"),
+            cfg=Config(scan_backend="torch", scan_input="grids"))
+        theirs = JaxPipeline(
+            motion_clip, str(tmp_path / "theirs.mp4"),
+            cfg=Config(scan_backend="xla", scan_input="grids"))
+        assert ours.run() == 0 and theirs.run() == 0
+        assert (ours.time_removed, ours.saved_pct) == \
+            (theirs.time_removed, theirs.saved_pct)
+        assert 50.0 < ours.saved_pct < 80.0
+        fps, w, h = probe(motion_clip)
+        ts_ours = sorted(ours._parallel_scan("mv", fps, w, h).motion_ts)
+        ts_theirs = sorted(theirs._parallel_scan("mv", fps, w, h).motion_ts)
+        assert ts_ours == ts_theirs and len(ts_ours) > 50
+        with native.VideoReader(str(tmp_path / "ours.mp4")) as a, \
+                native.VideoReader(str(tmp_path / "theirs.mp4")) as b:
+            assert a.duration == b.duration and 5.0 < a.duration < 10.0
+
+    def test_grids_heatmap_matches_jax(self, motion_clip, tmp_path):
+        """The grids payload's heatmap counts cells at votes >=
+        VECTORS_NEEDED, the same JSON document as the JAX grids run."""
+        heat_ours, heat_theirs = tmp_path / "h1.json", tmp_path / "h2.json"
+        ours = ProcessingPipeline(
+            motion_clip, str(tmp_path / "a.mp4"),
+            cfg=Config(scan_backend="torch", scan_input="grids",
+                       heatmap_path=str(heat_ours)))
+        theirs = JaxPipeline(
+            motion_clip, str(tmp_path / "b.mp4"),
+            cfg=Config(scan_backend="xla", scan_input="grids",
+                       heatmap_path=str(heat_theirs)))
+        assert ours.run() == 0 and theirs.run() == 0
+        doc = json.loads(heat_ours.read_text())
+        assert doc == json.loads(heat_theirs.read_text())
+        assert doc["max_activity"] > 0
 
     def test_grids_at_vectors_needed_zero_runs_bits(self, static_clip,
                                                     tmp_path):
@@ -158,7 +195,7 @@ class TestBatch:
         os.symlink(static_clip, in_dir / "a.mp4")
         os.symlink(static_clip, in_dir / "b.mp4")
         bp = BatchProcessor(2, Config(scan_backend="torch",
-                                      pipeline_mode="sad"))
+                                      scan_input="mv_raw"))
         assert bp.process(list_videos(str(in_dir)),
                           str(tmp_path / "out")) == 2
 
