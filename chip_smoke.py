@@ -6,25 +6,30 @@ Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, all started together), holds each kernel against its
 plain PyTorch version and the NumPy oracle at the geometries the scan paths
 meet, drives every ported scan path end to end, and times each kernel
-against its plain version.  Every phase raises on a failure, so any failure
-exits nonzero.  The last two lines of standard output are one JSON line
-listing the kernels of the paths and the result line
+against its plain version and its bound.  Every phase raises on a failure,
+so any failure exits nonzero.  The last two lines of standard output are
+one JSON line listing the kernels of the paths and the result line
 ``{"ok": true, "device": {...}}``.
 
 Phase 4 drives ``python -m mvtrim_tpu_torch``'s ``main`` on a synthetic
-1080p clip, once per path (bits, words, grids, SAD), when the native host
-library (FFmpeg's libav*) loads.  Where it does not, the phase says so on
-its own line and drives the device half of each path instead, on seeded
-1080p data: activity masks (bits, words) and vote grids (grids) through
+1080p clip, once per path (bits, words, grids, mv_raw, SAD), and
+``tools.tune`` on it (grids, mv_raw and SAD sweeps, with and without
+``--device-stats``), when the native host library (FFmpeg's libav*) loads.
+Where it does not, the phase says so on its own line and drives the device
+half of each path instead, on seeded 1080p data: activity masks (bits,
+words), vote grids (grids) and MV fields (mv_raw) through
 ``MVClusterDetector``, luma through ``SADDetector`` in the pipeline's
 cap-sized sub-scans with the carry threaded, each on through merging,
-segmentation and the cut decision.  The launch counts are set to 0 just
-before each path and read just after it.
+segmentation and the cut decision; and ``tools.tune``'s three routes, with
+and without ``--device-stats``, over a stand-in reader that serves the
+same data, against the same calls with the CPU build.  The launch counts
+are set to 0 just before each path and read just after it.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -45,6 +50,7 @@ from mvtrim_tpu_torch.models.sad_detector import (  # noqa: E402
     SADDetector, sad_oracle_counts)
 from mvtrim_tpu_torch.ops import _build  # noqa: E402
 from mvtrim_tpu_torch.ops import cluster as cluster_ops  # noqa: E402
+from mvtrim_tpu_torch.ops import mv_vote as mv_ops  # noqa: E402
 from mvtrim_tpu_torch.ops import sad as sad_ops  # noqa: E402
 from mvtrim_tpu_torch.pipeline.pipeline import ProcessingPipeline  # noqa: E402
 
@@ -56,16 +62,23 @@ KERNELS = {
     "cluster_map_counts": (cluster_ops.cluster_map_op,
                            "mvtrim_tpu_torch/csrc/cluster_map.cu",
                            "mvtrim_tpu/ops/cluster.py:123"),
-    "sad_block_grid": (sad_ops.sad_op,
+    "sad_block_grid": (sad_ops.sad_grid_op,
                        "mvtrim_tpu_torch/csrc/sad_block.cu",
                        "mvtrim_tpu/ops/sad.py:269"),
+    "mv_cluster_counts": (mv_ops.mv_cluster_op,
+                          "mvtrim_tpu_torch/csrc/mv_cluster.cu",
+                          "mvtrim_tpu/ops/mv_vote.py:304,322"),
 }
 # path -> the kernels it must launch
 PATH_KERNELS = {
     "bits": ("word_cluster_counts",),
     "words": ("word_cluster_counts",),
     "grids": ("cluster_map_counts",),
+    "mv_raw": ("mv_cluster_counts",),
     "sad": ("sad_block_grid", "cluster_map_counts"),
+    "tune_grids": ("cluster_map_counts",),
+    "tune_mv_raw": ("mv_cluster_counts",),
+    "tune_sad": ("sad_block_grid", "cluster_map_counts"),
 }
 GEOMETRIES = [  # (width, height, vertical_mask)
     (1920, 1080, 0.05),   # gw=120, not a multiple of 32
@@ -85,6 +98,32 @@ SAD_GEOMETRIES = [  # (width, height)
     (3840, 96),     # the K7 geometry of the JAX package's tests
 ]
 SAD_BATCHES = (1, 63, 64)
+# the raw-MV kernel: (width, height, capacity M, batches, counts), counts
+# "sparse" log-uniform in 1..M or "full" at M, frames 7, 57, ... 0
+MV_CASES = [
+    (1920, 1080, 8192, (1, 777, 2048), "sparse"),
+    (1920, 1080, 8192, (777, 2048), "full"),
+    (1920, 1080, 3000, (777,), "sparse"),     # not a TPU chunk multiple
+    (3840, 2160, 16384, (777,), "sparse"),    # 4K, 129.6 KB of votes
+    (7680, 4320, 8192, (64,), "sparse"),      # 518 KB: global histograms
+]
+# tune: MV_THRESHOLD_SQ x VECTORS_NEEDED x CLUSTERS_NEEDED, and the SAD
+# route's SAD_THRESHOLD x CLUSTERS_NEEDED
+TUNE_THRESHOLDS = (4.0, 16.0, 64.0)
+TUNE_VECTORS = (0, 1, 2)
+TUNE_CLUSTERS = (1, 2, 4)
+TUNE_SAD_THRESHOLDS = (4.0, 12.0, 30.0)
+# the seeded SAD sweep's clip: one 30 s chunk in three cap-resumed
+# sub-scans, then a short second chunk
+TUNE_SAD_SEC = 32.0
+# phase 5: the raw-MV kernel's frames a launch and batches rotated
+MV_TIMING_BATCH = (2048, 3)
+# the card's published peaks (NVIDIA's data sheet, H100 SXM): HBM bytes/s
+# and the float32 CUDA-core rate, the table's nearest entry for the
+# kernels' 32-bit integer operations (Hopper's int32 rate is lower, so the
+# bound stays a lower bound)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 # phase 5: frames a launch and device-resident batches (K1, K3); the SAD
 # window and its (label, geometry, windows rotated) cells
 TIMING_BATCH = (2048, 32)
@@ -348,6 +387,134 @@ def phase_correctness_sad(rng) -> int:
     return worst
 
 
+def device_mvs(gen, counts: torch.Tensor, m: int, width: int,
+               height: int) -> torch.Tensor:
+    """Seeded MV fields int16 [B, m, 4] on the card: dst over the frame and
+    32 pixels past each edge (negative dst included), displacements up to
+    8; every third MV lands in a 128x96 box of its frame, so cells collect
+    several votes and clusters form.  Rows past a frame's count hold
+    noise the kernel must not read."""
+    b = counts.numel()
+    dev = counts.device
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    dst_x, dst_y = ints(-32, width + 32, (b, m)), ints(-32, height + 32,
+                                                         (b, m))
+    boxed = torch.arange(m, device=dev) % 3 == 0
+    bx, by = ints(0, width - 128, (b, 1)), ints(0, height - 96, (b, 1))
+    dst_x = torch.where(boxed, bx + ints(0, 128, (b, m)), dst_x)
+    dst_y = torch.where(boxed, by + ints(0, 96, (b, m)), dst_y)
+    src_x, src_y = dst_x - ints(-8, 9, (b, m)), dst_y - ints(-8, 9, (b, m))
+    return torch.stack([dst_x, dst_y, src_x, src_y], dim=2).to(torch.int16)
+
+
+def extreme_mvs(m: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two frames whose magnitudes wrap int32: frame 0 holds MVs at dst =
+    32767, src = -32768 on both axes; frame 1 holds 3x3 cells of in-grid
+    MVs with src = -32768 on both axes (|d|^2 passes 2^31 and wraps
+    negative, so they drop out) beside 3x3 cells of ordinary ones."""
+    mvs = torch.zeros((2, m, 4), dtype=torch.int16)
+    mvs[0, :] = torch.tensor([32767, 32767, -32768, -32768])
+    k = 0
+    for cy in range(3, 6):
+        for cx in range(3, 6):
+            mvs[1, k] = torch.tensor([cx << 4, cy << 4, -32768, -32768])
+            mvs[1, k + 1] = torch.tensor([(cx + 20) << 4, cy << 4, 0, 0])
+            k += 2
+    counts = torch.tensor([m, k], dtype=torch.int32)
+    return mvs.to(device), counts.to(device)
+
+
+def _check_mv(mvs, counts, geom, vn, label, global_histogram=None) -> int:
+    """One launch of the raw-MV kernel vs its plain version on the same
+    tensors, exact; returns max |kernel - plain|."""
+    cfg = Config()
+    bound = mv_ops.threshold_bound(cfg.mv_threshold_sq)
+    got, motion = mv_ops.mv_cluster_op(
+        mvs, counts, geom, bound, vn, cfg.clusters_needed, cfg.block_shift,
+        global_histogram=global_histogram)
+    plain = mv_ops.mv_cluster_counts_plain(mvs, counts, geom, bound, vn,
+                                           cfg.block_shift)
+    torch.cuda.synchronize()
+    need = oracle.effective_clusters_needed(cfg.clusters_needed)
+    err = int((got.to(torch.int64) - plain).abs().max()) if len(got) else 0
+    if not (err == 0 and torch.equal(motion, (plain >= need)
+                                      & (counts > 0))):
+        raise AssertionError(f"mv_cluster kernel disagrees: {label} "
+                             f"VECTORS_NEEDED={vn}")
+    return err
+
+
+def phase_correctness_mv(seed: int) -> int:
+    """The raw-MV kernel (K4+K5) vs its plain version on the card, exact,
+    at every MV_CASES case and VECTORS_NEEDED 0, 1, 2, 255, the
+    global-histogram variant forced at 1080p once, and the int16-extreme
+    frames; a few frames also against the NumPy oracle.  Returns max
+    |kernel - plain|."""
+    cfg = Config()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    worst = 0
+    for width, height, m, batches, mode in MV_CASES:
+        geom = GridGeometry.build(width, height, cfg)
+        glob = mv_ops.uses_global_histogram(geom, torch.device("cuda"))
+        for b in batches:
+            if mode == "full":
+                counts = torch.full((b,), m, dtype=torch.int32)
+            else:
+                u = torch.rand((b,), generator=gen, device="cuda").cpu()
+                counts = torch.exp(u * math.log(m)).to(torch.int32)
+            counts[7::50] = 0
+            counts = counts.cuda()
+            mvs = device_mvs(gen, counts, m, width, height)
+            for vn in VECTORS_NEEDED:
+                worst = max(worst, _check_mv(
+                    mvs, counts, geom, vn, f"{width}x{height} M={m} B={b}"))
+            forced = ""
+            if (width, height, b) == (1920, 1080, 777) and mode == "sparse":
+                worst = max(worst, _check_mv(mvs, counts, geom, 2,
+                                             "global histogram at 1080p",
+                                             global_histogram=True))
+                forced = "; global-histogram variant forced: equal"
+                sub = mvs[:6].cpu().numpy()
+                host = counts[:6].cpu().numpy()
+                ours = mv_ops.mv_cluster_op(
+                    mvs[:6], counts[:6], geom,
+                    mv_ops.threshold_bound(cfg.mv_threshold_sq),
+                    cfg.vectors_needed, cfg.clusters_needed,
+                    cfg.block_shift)[1].cpu().numpy()
+                expect = [oracle.check_frame(
+                    sub[i, :host[i]], geom.gw, geom.gh,
+                    threshold_sq=cfg.mv_threshold_sq,
+                    block_shift=cfg.block_shift, y_min=geom.y_min,
+                    y_max=geom.y_max, vectors_needed=cfg.vectors_needed,
+                    clusters_needed=cfg.clusters_needed) for i in range(6)]
+                if not np.array_equal(ours, expect):
+                    raise AssertionError("mv_cluster kernel disagrees with "
+                                         "the oracle at 1080p")
+                forced += "; 6 frames == oracle"
+            log(f"mv_cluster {width}x{height} M={m} B={b} {mode} "
+                f"({'global' if glob else 'shared'} histograms, counts "
+                f"{int(counts.min())}..{int(counts.max())}, mean "
+                f"{counts.float().mean():.1f}): kernel == plain at "
+                f"VECTORS_NEEDED {VECTORS_NEEDED}{forced}")
+            del mvs
+    geom = GridGeometry.build(1920, 1080, cfg)
+    mvs, counts = extreme_mvs(64, "cuda")
+    for vn in VECTORS_NEEDED:
+        worst = max(worst, _check_mv(mvs, counts, geom, vn, "int16 extremes"))
+    votes = mv_ops.mv_votes_plain(mvs, counts, geom, 16, cfg.block_shift)
+    if int(votes.sum()) != 9:
+        raise AssertionError("the wrapped magnitudes were not dropped")
+    log(f"mv_cluster int16 extremes (dst 32767, src -32768; in-grid src "
+        f"-32768): kernel == plain at VECTORS_NEEDED {VECTORS_NEEDED}, "
+        f"{int(votes.sum())} votes (the wrapped MVs drop out)")
+    torch.cuda.empty_cache()
+    return worst
+
+
 # --- phase 4 ---
 
 def _segments_text(segments) -> list[tuple[float, float]]:
@@ -558,6 +725,175 @@ def sad_path(seed: int):
     return run
 
 
+def synthetic_mvs(seed: int, geom: GridGeometry, cfg: Config):
+    """The same scan as raw MV fields int16 [N, M, 4] + counts [N]: each
+    vote of ``synthetic_votes`` becomes an MV landing in its cell with a
+    displacement of 3..8 on each axis (|d|^2 18..128, kept at the
+    default MV_THRESHOLD_SQ), beside 150 MVs a frame with |d|^2 <= 2 and
+    20 whose dst lies above the frame, which no threshold keeps.  Every
+    40th frame outside the motion windows carries no MV side data
+    (count 0).  Returns (mvs, counts, pts)."""
+    rng = np.random.default_rng(seed + 3)
+    votes, pts = synthetic_votes(seed, geom, cfg.vectors_needed)
+    n, m, shift = len(pts), cfg.mv_capacity, cfg.block_shift
+    in_window = np.zeros(n, bool)
+    for lo, hi in MOTION_WINDOWS:
+        in_window |= (pts >= lo - 1) & (pts < hi + 1)
+    side_less = (np.arange(n) % 40 == 7) & ~in_window
+    votes[side_less] = 0
+    per_frame = votes.reshape(n, -1).sum(axis=1, dtype=np.int64)
+    counts = np.where(side_less, 0, per_frame + 170).astype(np.int32)
+    if counts.max() > m:
+        raise AssertionError(f"synthetic frames need {counts.max()} > {m}")
+    mvs = np.zeros((n, m, 4), np.int16)
+    # kept MVs first: one per vote, frame by frame
+    cell = np.repeat(np.arange(votes.size), votes.ravel().astype(np.int64))
+    frame, within = np.divmod(cell, geom.gh * geom.gw)
+    k = np.arange(cell.size) - np.repeat(
+        np.concatenate([[0], np.cumsum(per_frame)[:-1]]), per_frame)
+    gy, gx = np.divmod(within, geom.gw)
+    dst = np.stack([(gx << shift) + rng.integers(0, 1 << shift, cell.size),
+                    (gy << shift) + rng.integers(0, 1 << shift, cell.size)],
+                   1)
+    disp = rng.integers(3, 9, size=(cell.size, 2)) * rng.choice(
+        [-1, 1], size=(cell.size, 2))
+    mvs[frame, k] = np.concatenate([dst, dst - disp], 1)
+    # then the MVs no threshold >= 4 keeps
+    rows = np.nonzero(~side_less)[0]
+    for i in rows:
+        c0 = int(per_frame[i])
+        noise = rng.integers(0, [geom.gw << shift, geom.gh << shift],
+                             size=(170, 2))
+        noise[150:, 1] = -rng.integers(17, 200, size=20)
+        mvs[i, c0:c0 + 170] = np.concatenate(
+            [noise, noise - rng.integers(-1, 2, size=(170, 2))], 1)
+    return mvs, counts, pts
+
+
+def _scan_raw(detector: MVClusterDetector, mvs, counts, pts):
+    """The pipeline's feeder over 30 s chunks of raw MV fields."""
+    chunk = int(Config().chunk_duration_sec * FPS)
+    pending = [(pts[lo:lo + chunk], detector.scan_raw_mvs_async(
+        mvs[lo:lo + chunk], counts[lo:lo + chunk]))
+        for lo in range(0, len(pts), chunk)]
+    motion_ts = []
+    for p, resolve in pending:
+        motion_ts.extend(p[resolve()].tolist())
+    return motion_ts
+
+
+@functools.lru_cache(maxsize=1)
+def mv_data(seed: int):
+    """synthetic_mvs at 1080p, made once per run."""
+    cfg = Config()
+    return synthetic_mvs(seed, GridGeometry.build(1920, 1080, cfg), cfg)
+
+
+def mv_raw_path(seed: int):
+    """Seeded 1080p MV fields through MVClusterDetector.scan_raw_mvs_async
+    on the card, held against the oracle backend (oracle.check_frame per
+    frame)."""
+    cfg = Config()
+    mvs, counts, pts = mv_data(seed)
+    t0 = time.perf_counter()
+    ref = MVClusterDetector(1920, 1080, Config(scan_backend="oracle"))
+    ref_ts = _scan_raw(ref, mvs, counts, pts)
+    ref_cut = _decide(ref_ts, cfg)
+    _check_windows(ref_cut, cfg, -1 / FPS, "mv_raw oracle")
+    log(f"mv_raw oracle reference: {len(pts)} frames, mean "
+        f"{counts.mean():.1f} MVs a frame, in "
+        f"{time.perf_counter() - t0:.3f} s")
+
+    def run() -> dict:
+        det = MVClusterDetector(1920, 1080, cfg)  # auto -> cuda
+        assert det.backend == "cuda", det.backend
+        t0 = time.perf_counter()
+        motion_ts = _scan_raw(det, mvs, counts, pts)
+        scan_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        is_cut, segments = _decide(motion_ts, cfg)
+        decide_s = time.perf_counter() - t0
+        same = (motion_ts == ref_ts and is_cut == ref_cut[0]
+                and segments == ref_cut[1])
+        log(f"e2e mv_raw 1080p {len(pts)} frames (M={mvs.shape[1]}, "
+            f"{mvs.nbytes / 1e6:.1f} MB of int16 fields): {len(motion_ts)} "
+            f"motion frames, cut={is_cut}, segments "
+            f"{_segments_text(segments)}; identical to the oracle backend: "
+            f"{same}; scan {scan_s * 1e3:.3f} ms, merge+segment+decide "
+            f"{decide_s * 1e3:.3f} ms")
+        if not same:
+            raise AssertionError("mv_raw: differs from the oracle backend")
+        return {"scan_ms": scan_s * 1e3, "decide_ms": decide_s * 1e3}
+
+    return run
+
+
+class SeededReader:
+    """A stand-in for ``native.VideoReader`` over the seeded 1080p data,
+    for ``tools.tune`` where libav does not load.  ``scan_mvs`` serves
+    ``mv_data``'s fields (a frame past ``max_mv`` truncated, its count
+    negated, as the native scan marks an overflow), ``scan_grids_multi``
+    the vote grids the native scatter makes of them (uint8, saturating at
+    255) and ``scan_luma`` ``LumaClip``'s frames.  Each scan serves the
+    frames of [start, end), at most ``max_frames``, and with ``resume``
+    goes on after the last frame it served."""
+
+    def __init__(self, seed: int, seconds: float):
+        self.seed = seed
+        self.width, self.height, self.fps = 1920, 1080, FPS
+        self.duration = seconds
+        self.pts = np.arange(int(seconds * FPS)) / FPS
+        self.geom = GridGeometry.build(1920, 1080, Config())
+        self.luma = None
+        self.next = 0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+    def _range(self, start, end, frame_skip, max_frames, resume):
+        if frame_skip != 1:
+            raise AssertionError(f"frame_skip {frame_skip}: not served")
+        lo = self.next if resume else int(np.searchsorted(self.pts, start))
+        hi = min(lo + max_frames, int(np.searchsorted(self.pts, end)))
+        self.next = hi
+        return lo, hi
+
+    def scan_mvs(self, start, end, *, frame_skip=1, max_frames=4096,
+                 max_mv=8192, resume=False):
+        lo, hi = self._range(start, end, frame_skip, max_frames, resume)
+        mvs, counts, pts = mv_data(self.seed)
+        out = np.zeros((hi - lo, max_mv, 4), np.int16)
+        m = min(max_mv, mvs.shape[1])
+        out[:, :m] = mvs[lo:hi, :m]
+        c = counts[lo:hi]
+        return out, np.where(c > max_mv, -c, c).astype(np.int32), pts[lo:hi]
+
+    def scan_grids_multi(self, start, end, *, thresholds_sq, block_shift,
+                         gw, gh, y_min, y_max, frame_skip=1,
+                         max_frames=4096, resume=False):
+        g = self.geom
+        if (gw, gh, y_min, y_max) != (g.gw, g.gh, g.y_min, g.y_max):
+            raise AssertionError("tune asked for another grid")
+        lo, hi = self._range(start, end, frame_skip, max_frames, resume)
+        mvs, counts, pts = mv_data(self.seed)
+        fields = torch.from_numpy(mvs[lo:hi])
+        cnts = torch.from_numpy(counts[lo:hi])
+        grids = [mv_ops.mv_votes_plain(
+            fields, cnts, g, mv_ops.threshold_bound(t), block_shift)
+            .clamp_(max=255).to(torch.uint8).numpy() for t in thresholds_sq]
+        return np.stack(grids, axis=1), pts[lo:hi], counts[lo:hi] > 0
+
+    def scan_luma(self, start, end, *, frame_skip=1, max_frames=256,
+                  resume=False):
+        lo, hi = self._range(start, end, frame_skip, max_frames, resume)
+        if self.luma is None:
+            self.luma = LumaClip(self.seed, self.width, self.height)
+        return self.luma.frames(lo, hi), self.pts[lo:hi]
+
+
 CLIP_REFS = {"oracle": {"MVT_SCAN_BACKEND": "oracle"},
              "sad_oracle": {"MVT_SCAN_BACKEND": "oracle",
                             "MVT_PIPELINE": "sad"}}
@@ -565,6 +901,7 @@ CLIP_PATHS = {  # path -> (environment, the reference run it must equal)
     "bits": ({}, "oracle"),
     "words": ({"MVT_SCAN_INPUT": "words"}, "oracle"),
     "grids": ({"MVT_SCAN_INPUT": "grids"}, "oracle"),
+    "mv_raw": ({"MVT_SCAN_INPUT": "mv_raw"}, "oracle"),
     "sad": ({"MVT_PIPELINE": "sad"}, "sad_oracle"),
 }
 
@@ -627,6 +964,53 @@ def clip_path(clip: str, workdir: str, name: str, refs: dict):
     return run
 
 
+def tune_path(open_reader, kind: str, label: str):
+    """tools.tune's ``kind`` route over ``open_reader()`` (a decoded clip
+    or a SeededReader), on the card, against the same call with the CPU
+    build: the rows equal, with and without --device-stats (saved_pct
+    within 0.01 there, the f32 sums' order may differ)."""
+    from mvtrim_tpu_torch.tools import tune
+
+    def sweep(device_stats: bool, backend: str):
+        cfg = Config(scan_backend=backend)
+        with open_reader() as reader:
+            if kind == "sad":
+                return tune.sweep_sad_reader(
+                    reader, TUNE_SAD_THRESHOLDS, TUNE_CLUSTERS, cfg=cfg,
+                    device_stats=device_stats)
+            return tune.sweep_reader(
+                reader, TUNE_THRESHOLDS, TUNE_VECTORS, TUNE_CLUSTERS,
+                cfg=cfg, device_stats=device_stats, scan_input=kind)
+
+    t0 = time.perf_counter()
+    refs = {ds: sweep(ds, "torch") for ds in (False, True)}
+    ref_s = time.perf_counter() - t0
+    if not any(r["motion_frames"] for r in refs[False]):
+        raise AssertionError(f"tune {kind}: no config found motion")
+
+    def run() -> dict:
+        t0 = time.perf_counter()
+        for ds, ref in refs.items():
+            rows = sweep(ds, "auto")
+            if len(rows) != len(ref):
+                raise AssertionError(f"tune {kind}: {len(rows)} rows")
+            for got, want in zip(rows, ref):
+                if ({k: v for k, v in got.items() if k != "saved_pct"}
+                        != {k: v for k, v in want.items()
+                            if k != "saved_pct"}
+                        or abs(got["saved_pct"] - want["saved_pct"])
+                        > (0.01 if ds else 0.0)):
+                    raise AssertionError(f"tune {kind}: {got} != {want}")
+        tune_s = time.perf_counter() - t0
+        log(f"e2e {label} tune {kind}: {len(refs[False])} configs, rows on "
+            f"the card == the CPU build's, with and without "
+            f"--device-stats; both sweeps {tune_s * 1e3:.3f} ms on the card, "
+            f"{ref_s * 1e3:.3f} ms on the CPU build")
+        return {"tune_ms": tune_s * 1e3}
+
+    return run
+
+
 def counted(run) -> dict:
     """Run one path with every launch count set to 0 just before it;
     the counts just after."""
@@ -652,9 +1036,19 @@ def phase_main_paths(seed: int, have_native: bool) -> dict:
             for name in CLIP_PATHS:
                 launches[name] = counted(clip_path(clip, workdir, name,
                                                    refs))
+            for kind in ("grids", "mv_raw", "sad"):
+                launches[f"tune_{kind}"] = counted(tune_path(
+                    functools.partial(native.VideoReader, clip), kind,
+                    "clip"))
     else:
         runs = {p: mv_path(seed, p) for p in ("bits", "words", "grids")}
+        runs["mv_raw"] = mv_raw_path(seed)
         runs["sad"] = sad_path(seed)
+        for kind in ("grids", "mv_raw", "sad"):
+            seconds = TUNE_SAD_SEC if kind == "sad" else CLIP_SEC
+            runs[f"tune_{kind}"] = tune_path(
+                functools.partial(SeededReader, seed, seconds), kind,
+                f"seeded 1080p {seconds:g} s")
         for name, run in runs.items():
             launches[name] = counted(run)
     for path, names in PATH_KERNELS.items():
@@ -701,7 +1095,20 @@ def _turns(fns: dict, batches, refs, iters: dict) -> dict:
     return {name: (sum(r) / len(r), r) for name, r in runs.items()}
 
 
-def phase_timing_words(rng, card: str) -> tuple[float, float]:
+def least_time(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over the peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def centre_cells(geom: GridGeometry) -> int:
+    rows = min(geom.y_max, geom.gh) - max(geom.y_min, 0)
+    return max(rows, 0) * max(geom.gw - 2, 0)
+
+
+def phase_timing_words(rng, card: str) -> dict:
     cfg = Config()
     geom = GridGeometry.build(1920, 1080, cfg)
     b, n_batches = TIMING_BATCH
@@ -752,10 +1159,15 @@ def phase_timing_words(rng, card: str) -> tuple[float, float]:
         f"{[round(r * 1e3, 3) for r in reps]} = {big_ms * 1e3:.3f} "
         f"us/launch, {nbytes / big_ms / 1e9:.3f} TB/s of 3.35 TB/s peak, "
         f"{len(halves[0]) / big_ms * 1e3:.0f} frames/s")
-    return k_ms, p_ms
+    # a 2048-frame launch reads its words once and writes counts and
+    # motion; about 16 integer operations a word (four neighbour words,
+    # shifts, ors, the centre mask, a popcount)
+    words = b * cluster_ops.word_geometry(geom)[1]
+    return {"ms": k_ms, "plain_ms": p_ms,
+            **least_time(words * 4 + b * 5, words * 16)}
 
 
-def phase_timing_map(seed: int, card: str) -> tuple[float, float]:
+def phase_timing_map(seed: int, card: str) -> dict:
     """K3 at 1080p, B = 2048 uint8 vote grids a launch (16.7 MB), 32
     device-resident batches (534 MB, past the L2)."""
     cfg = Config()
@@ -786,7 +1198,11 @@ def phase_timing_map(seed: int, card: str) -> tuple[float, float]:
         f"{p_ms * 1e3:.3f} us/launch (runs {p_runs} ms)")
     log(f"cluster_map kernel device time per launch (torch.profiler): "
         f"{_profiled_kernel_us(kernel, batches, 'cluster_map_kernel')}")
-    return k_ms, p_ms
+    # uint8 votes read once, counts and motion written; about 7 integer
+    # operations a centre cell (four maxima, a minimum, a compare, a sum)
+    return {"ms": k_ms, "plain_ms": p_ms,
+            **least_time(b * geom.gh * geom.gw + b * 5,
+                    b * centre_cells(geom) * 7)}
 
 
 def phase_timing_sad(seed: int, card: str) -> dict:
@@ -855,9 +1271,106 @@ def phase_timing_sad(seed: int, card: str) -> dict:
             f"cluster_map) {op_ms * 1e3:.3f} us/window (runs {op_runs} ms); "
             f"H2D from pinned memory {h2d_ms * 1e3:.3f} us/window "
             f"({nbytes / h2d_ms / 1e6:.3f} GB/s)")
+        # the window read once (the carry plane too), the int32 grid
+        # written; two integer operations a pixel (|difference|, sum)
         out[label] = {"ms": k_ms, "plain_ms": p_ms, "op_ms": op_ms,
-                      "h2d_ms": h2d_ms}
+                      "h2d_ms": h2d_ms,
+                      **least_time(nbytes + b * geom.gh * geom.gw * 4,
+                                   b * height * width * 2)}
+        # K3 inside the op: the int32 grid read, counts and motion written
+        k3 = least_time(b * geom.gh * geom.gw * 4 + b * 5,
+                        b * centre_cells(geom) * 7)
+        log(f"sad_block bound {label} B={b}: "
+            f"{out[label]['bound_ms'] * 1e3:.3f} us by "
+            f"{out[label]['bound_by']}; cluster_map on its int32 grid: "
+            f"{(op_ms - k_ms) * 1e3:.3f} us (op minus kernel) against a "
+            f"bound of {k3['bound_ms'] * 1e3:.3f} us by {k3['bound_by']}")
         del wins, pinned, dst
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_timing_mv(seed: int, card: str) -> dict:
+    """The raw-MV kernel at 1080p, B = 2048 frames of M = 8192 MV rows a
+    launch (134.2 MB of int16 fields), three device-resident batches
+    rotated past the L2: sparse counts (log-uniform in 1..M) and full
+    capacity, the kernel against its plain version in turns; and the H2D
+    copy of one batch from pinned memory."""
+    cfg = Config()
+    geom = GridGeometry.build(1920, 1080, cfg)
+    (b, n_batches), m = MV_TIMING_BATCH, cfg.mv_capacity
+    bnd = mv_ops.threshold_bound(cfg.mv_threshold_sq)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+    out = {}
+    for mode in ("sparse", "full"):
+        batches = []
+        for _ in range(n_batches):
+            if mode == "full":
+                counts = torch.full((b,), m, dtype=torch.int32,
+                                    device="cuda")
+            else:
+                u = torch.rand((b,), generator=gen, device="cuda")
+                counts = torch.exp(u * math.log(m)).to(torch.int32)
+            batches.append((device_mvs(gen, counts, m, 1920, 1080), counts))
+        ref = [int(mv_ops.mv_cluster_counts_plain(
+            f, c, geom, bnd, cfg.vectors_needed, cfg.block_shift).sum())
+            for f, c in batches]
+
+        def kernel(fc):
+            return mv_ops.mv_cluster_op(
+                fc[0], fc[1], geom, bnd, cfg.vectors_needed,
+                cfg.clusters_needed, cfg.block_shift)[0]
+
+        def plain(fc):
+            return mv_ops.mv_cluster_counts_plain(
+                fc[0], fc[1], geom, bnd, cfg.vectors_needed,
+                cfg.block_shift)
+
+        t = _turns({"plain": plain, "kernel": kernel}, batches, ref,
+                   {"plain": 8, "kernel": 64})
+        (k_ms, k_runs), (p_ms, p_runs) = t["kernel"], t["plain"]
+        # the MV rows below each count read once (8 bytes each), the
+        # counts read, counts and motion written; about 12 integer
+        # operations an MV (two differences, two products, a sum, the
+        # bound, two shifts, four range tests) and 8 a centre cell (the
+        # rule's 7 and the histogram's zeroing)
+        mvs_read = sum(int(c.sum()) for _, c in batches) / n_batches
+        out[mode] = {"ms": k_ms, "plain_ms": p_ms, **least_time(
+            mvs_read * 8 + b * 9, mvs_read * 12 + b * centre_cells(geom) * 8)}
+        log(f"mv_cluster timing 1080p B={b} M={m} {mode} (mean "
+            f"{mvs_read / b:.1f} MVs a frame, {mvs_read * 8 / 1e6:.1f} MB "
+            f"of rows below the counts of "
+            f"{b * m * 8 / 1e6:.1f} MB a launch; {n_batches} batches "
+            f"rotated) on {card}: kernel {k_ms * 1e3:.3f} us/launch "
+            f"({b / k_ms * 1e3:.0f} frames/s; runs {k_runs} ms), plain "
+            f"{p_ms * 1e3:.3f} us/launch (runs {p_runs} ms), bound "
+            f"{out[mode]['bound_ms'] * 1e3:.3f} us by "
+            f"{out[mode]['bound_by']}")
+        if mode == "sparse":
+            log(f"mv_cluster kernel device time per launch (torch.profiler,"
+                f" sparse): "
+                f"{_profiled_kernel_us(kernel, batches, 'mv_cluster_kernel')}")
+        # H2D of one batch from pinned memory
+        pinned = batches[0][0].cpu().pin_memory()
+        dst = torch.empty_like(batches[0][0])
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        dst.copy_(pinned, non_blocking=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(8):
+            dst.copy_(pinned, non_blocking=True)
+        stop.record()
+        torch.cuda.synchronize()
+        h2d_ms = start.elapsed_time(stop) / 8
+        if not torch.equal(dst, batches[0][0]):
+            raise AssertionError("H2D copy of an MV batch differs")
+        out[mode]["h2d_ms"] = h2d_ms
+        mb = pinned.numel() * 2 / 1e6
+        log(f"H2D of one {b}-frame int16 MV batch ({mb:.1f} MB) from "
+            f"pinned memory on {card}: {h2d_ms * 1e3:.3f} us "
+            f"({mb / h2d_ms:.3f} GB/s)")
+        del batches, pinned, dst
         torch.cuda.empty_cache()
     return out
 
@@ -902,27 +1415,39 @@ def main() -> int:
     phase_build()
     worst = {"word_cluster_counts": phase_correctness_words(rng),
              "cluster_map_counts": phase_correctness_map(rng),
-             "sad_block_grid": phase_correctness_sad(rng)}
+             "sad_block_grid": phase_correctness_sad(rng),
+             "mv_cluster_counts": phase_correctness_mv(args.seed)}
     log(f"phases 1-3 done at {time.perf_counter() - t_start:.3f} s")
 
     launches = phase_main_paths(args.seed, have_native)
     log(f"phase 4 done at {time.perf_counter() - t_start:.3f} s")
 
     times = {"word_cluster_counts": phase_timing_words(rng, card),
-             "cluster_map_counts": phase_timing_map(args.seed, card)}
-    sad = phase_timing_sad(args.seed, card)
-    first = sad[SAD_TIMING[0][0]]
-    times["sad_block_grid"] = (first["ms"], first["plain_ms"])
+             "cluster_map_counts": phase_timing_map(args.seed, card),
+             "sad_block_grid": phase_timing_sad(args.seed,
+                                                card)[SAD_TIMING[0][0]],
+             "mv_cluster_counts": phase_timing_mv(args.seed,
+                                                  card)["sparse"]}
+    for name, t in times.items():
+        log(f"{name}: {t['ms'] * 1e3:.3f} us a launch at its timed shape "
+            f"against a bound of {t['bound_ms'] * 1e3:.3f} us by "
+            f"{t['bound_by']} ({HBM_BYTES_PER_S / 1e12} TB/s, "
+            f"{OPS_PER_S / 1e12:.0f} T operations/s) on {card}")
     log(f"phase 5 done at {time.perf_counter() - t_start:.3f} s")
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    loaded = [m for m in sys.modules
+              if m in ("jax", "mvtrim_tpu") or m.startswith(("jax.",
+                                                            "mvtrim_tpu."))]
+    if loaded:
+        raise AssertionError(f"imported {loaded[:5]}")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces,
         "launches": sum(launches[p][name] for p, names
                         in PATH_KERNELS.items() if name in names),
-        "max_abs_err": worst[name], "ms": times[name][0],
-        "plain_ms": times[name][1]}
+        "max_abs_err": worst[name], "ms": times[name]["ms"],
+        "plain_ms": times[name]["plain_ms"],
+        "bound_ms": times[name]["bound_ms"],
+        "bound_by": times[name]["bound_by"], "library_ms": None}
         for name, (_, source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,12 +22,11 @@ import dataclasses
 
 import torch
 
-from mvtrim_tpu.core.config import Config
-from mvtrim_tpu.cut.executor import CutQueue
-from mvtrim_tpu.utils import logging as log
-from mvtrim_tpu.utils import system
-from mvtrim_tpu.utils.timing import TimingCollector
-
+from ..core.config import Config
+from ..cut.executor import CutQueue
+from ..utils import logging as log
+from ..utils import system
+from ..utils.timing import TimingCollector
 from ..pipeline.pipeline import ProcessingPipeline
 
 VIDEO_EXTENSIONS = {".mp4", ".mkv", ".ts", ".mov", ".avi"}  # main.cpp:68-69

@@ -12,9 +12,8 @@ from __future__ import annotations
 import os
 import sys
 
-from mvtrim_tpu.core.config import Config
-from mvtrim_tpu.utils import logging as log
-
+from .core.config import Config
+from .utils import logging as log
 from .batch.batch import BatchProcessor, list_videos
 from .pipeline.pipeline import ProcessingPipeline
 

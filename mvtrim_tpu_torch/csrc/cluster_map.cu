@@ -5,17 +5,9 @@
 // is also the math of cluster_counts_traced that the SAD path ends in.
 //
 // Input: votes [B, gh, gw], contiguous, uint8 (the grids payload) or int32
-// (the SAD block-sum grid).  For each centre cell, y in [y_min, y_max) and
-// x in [1, gw-2]:
-//
-//   counts  when  min(v, max(left, right, up, down)) >= thr
-//
-// which is "v >= thr and some 4-neighbour >= thr".  A neighbour outside the
-// grid reads as vote 0 and is compared with thr like any other cell, so at
-// thr <= 0 it is active (what _shift2d's zero fill and the NumPy oracle do).
-// Left and right of a centre cell always lie in the grid; up and down may
-// not when the vertical margin is 0.  counts[b] = number of such cells,
-// motion[b] = counts[b] >= need, need = max(1, clusters_needed).
+// (the SAD block-sum grid).  counts[b] = the centre cells of frame b that
+// the cluster rule of cluster_rule.cuh counts at threshold thr, motion[b] =
+// counts[b] >= need, need = max(1, clusters_needed).
 //
 // What bounds it: a frame is gh*gw elements read once (8,160 B of uint8 at
 // 1080p; 4x that as int32) and 5 bytes written, but each cell costs five
@@ -33,6 +25,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cluster_rule.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
@@ -49,23 +43,9 @@ cluster_map_kernel(const T* __restrict__ votes, int batch, int gh, int gw,
     if (frame >= batch) return;  // whole warp leaves together
 
     const T* f = votes + static_cast<size_t>(frame) * gh * gw;
-    const int y0 = max(y_min, 0);
-    const int rows = min(y_max, gh) - y0;
-    const int cols = gw - 2;  // centre columns x = 1 .. gw-2
-    const int cells = rows > 0 && cols > 0 ? rows * cols : 0;
-    uint32_t total = 0;
-    for (int j = lane; j < cells; j += 32) {
-        const int y = y0 + j / cols;
-        const int x = 1 + j % cols;
-        const int i = y * gw + x;
-        const int v = static_cast<int>(__ldg(f + i));
-        const int left = static_cast<int>(__ldg(f + i - 1));
-        const int right = static_cast<int>(__ldg(f + i + 1));
-        const int up = y > 0 ? static_cast<int>(__ldg(f + i - gw)) : 0;
-        const int down = y + 1 < gh ? static_cast<int>(__ldg(f + i + gw)) : 0;
-        const int nmax = max(max(left, right), max(up, down));
-        total += min(v, nmax) >= thr ? 1u : 0u;
-    }
+    uint32_t total = count_cluster_cells(
+        [f](int i) { return static_cast<int>(__ldg(f + i)); }, gh, gw, y_min,
+        y_max, thr, lane, 32);
     for (int off = 16; off > 0; off >>= 1)
         total += __shfl_down_sync(kFullMask, total, off);
     if (lane == 0) {

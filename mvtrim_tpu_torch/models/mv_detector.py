@@ -1,8 +1,8 @@
 """MVClusterDetector — the motion detector of the MV scan paths.
 
-The bits/words/grids part of ``mvtrim_tpu/models/mv_detector.py``:
-bit-packed activity masks (or their int32 word layout), or uint8 vote
-grids, go to the device in batches of ``device_batch`` frames, and each
+The counterpart of ``mvtrim_tpu/models/mv_detector.py``: bit-packed
+activity masks (or their int32 word layout), uint8 vote grids, or raw MV
+fields go to the device in batches of ``device_batch`` frames, and each
 batch comes back as per-frame motion booleans.  Dispatch is asynchronous:
 ``scan_*_async`` returns a zero-argument resolver that waits for its
 batches and returns motion [N], so the pipeline's feeder overlaps device
@@ -14,11 +14,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mvtrim_tpu.core import oracle
-from mvtrim_tpu.core.config import Config
-from mvtrim_tpu.core.types import GridGeometry
-
+from ..core import oracle
+from ..core.config import Config
+from ..core.types import GridGeometry
 from ..ops import cluster as cluster_ops
+from ..ops import mv_vote
 
 BACKENDS = ("auto", "torch", "oracle")
 
@@ -39,19 +39,21 @@ def resolve_backend(requested: str) -> str:
     return requested
 
 
-def stage_and_decide(rows: np.ndarray, device: torch.device, op):
+def stage_and_decide(rows, device: torch.device, op):
     """Stage one batch in pinned host memory, copy it to ``device``
     without blocking, decide it with ``op(tensor) -> motion bool``, and
-    copy the motion back into a pinned buffer behind an event.
+    copy the motion back into a pinned buffer behind an event.  ``rows``
+    is one numpy array, or a tuple of them that ``op`` takes in order.
 
     Returns (host, pending) with pending = (done, staged, on_device,
     motion): the caller keeps ``pending`` until it has waited on ``done``
     (the pinned ``staged`` must not be reused while its copy may still
     run), then reads ``host``.
     """
-    staged = torch.from_numpy(rows).pin_memory()
-    on_device = staged.to(device, non_blocking=True)
-    motion = op(on_device)
+    arrays = rows if isinstance(rows, tuple) else (rows,)
+    staged = tuple(torch.from_numpy(a).pin_memory() for a in arrays)
+    on_device = tuple(t.to(device, non_blocking=True) for t in staged)
+    motion = op(*on_device)
     host = torch.empty(motion.shape, dtype=torch.bool, pin_memory=True)
     host.copy_(motion, non_blocking=True)
     done = torch.cuda.Event()
@@ -104,12 +106,71 @@ class MVClusterDetector:
         """Host entry: vote grids uint8 [N, gh, gw] -> motion bool [N]."""
         return self.scan_votes_async(grids)()
 
-    # --- a path outside the ported slices ---
+    # --- forward over raw MV fields (mv_raw payload) ---
+
+    def decide_raw_mvs_on_host(self, mvs: np.ndarray,
+                               counts: np.ndarray) -> np.ndarray:
+        """The NumPy oracle (``oracle.check_frame``) over raw MV fields
+        int16 [N, M, 4] + counts int32 [N] >= 0 -> motion bool [N]."""
+        g, cfg = self.geom, self.cfg
+        return np.array([
+            oracle.check_frame(
+                mvs[i, :counts[i]].astype(np.int64), g.gw, g.gh,
+                threshold_sq=cfg.mv_threshold_sq,
+                block_shift=cfg.block_shift, y_min=g.y_min, y_max=g.y_max,
+                vectors_needed=cfg.vectors_needed,
+                clusters_needed=cfg.clusters_needed)
+            for i in range(len(counts))], dtype=bool)
 
     def scan_raw_mvs_async(self, mvs: np.ndarray, counts: np.ndarray):
-        raise RuntimeError(
-            "the raw-MV payload (MVT_SCAN_INPUT=mv_raw) is not ported to "
-            "mvtrim_tpu_torch yet: ROADMAP.md queue 1 item 8")
+        """Dispatch raw MV fields int16 [N, M, 4] + counts int32 [N];
+        return a resolver for motion bool [N].  The fused raw-MV kernel
+        thresholds, scatters and clusters on the device.
+
+        Exactness contract: a negative count means the native scanner
+        truncated that frame's MV list to the M capacity, so a decision
+        over it could differ from the reference — callers MUST re-scan the
+        range with a larger capacity first (the pipeline's mv_raw worker
+        does, doubling until clean).  We refuse to guess.
+        """
+        n = mvs.shape[0]
+        if n == 0:
+            return lambda: np.zeros((0,), bool)
+        overflow = np.nonzero(counts < 0)[0]
+        if overflow.size:
+            need = int(-counts[overflow].min())
+            raise ValueError(
+                f"{overflow.size} frame(s) overflowed the MV capacity "
+                f"M={mvs.shape[1]} (max real count {need}); re-scan with "
+                f"a larger max_mv — a truncated list cannot be decided "
+                f"exactly")
+        if self.backend == "oracle":
+            motion = self.decide_raw_mvs_on_host(mvs, counts)
+            return lambda: motion
+        bound = mv_vote.threshold_bound(self.cfg.mv_threshold_sq)
+        db = self.device_batch
+
+        def rows(lo, hi):
+            # pad each dispatch to a power-of-two bucket in [256,
+            # device_batch], as the JAX detector does (zero-count pad
+            # frames decide False and are sliced off in resolve)
+            bucket = min(db, max(256, 1 << (hi - lo - 1).bit_length()))
+            batch = np.zeros((bucket,) + mvs.shape[1:], np.int16)
+            batch[:hi - lo] = mvs[lo:hi]
+            cnts = np.zeros((bucket,), np.int32)
+            cnts[:hi - lo] = counts[lo:hi]
+            return batch, cnts
+
+        def op(fields, cnts):
+            return mv_vote.mv_cluster_op(
+                fields, cnts, self.geom, bound, self.cfg.vectors_needed,
+                self.cfg.clusters_needed, self.cfg.block_shift)[1]
+
+        return self._dispatch(rows, n, op)
+
+    def scan_raw_mvs(self, mvs: np.ndarray, counts: np.ndarray) -> np.ndarray:
+        """Host entry for the raw-MV path (see scan_raw_mvs_async)."""
+        return self.scan_raw_mvs_async(mvs, counts)()
 
     # --- forward over bit-packed activity masks (default path) ---
 
@@ -148,9 +209,10 @@ class MVClusterDetector:
             words, self.geom, self.cfg.clusters_needed)[1]
 
     def _dispatch(self, get_rows, n: int, op):
-        """The one batch/dispatch/resolve loop, shared by the bits, words
-        and grids inputs.  ``get_rows(lo, hi)`` supplies each batch as a
-        numpy array and ``op(tensor) -> motion bool`` decides it.
+        """The one batch/dispatch/resolve loop, shared by the bits, words,
+        grids and raw-MV inputs.  ``get_rows(lo, hi)`` supplies each batch
+        as a numpy array, or a tuple of them, and ``op(*tensors) -> motion
+        bool`` decides it; rows past hi - lo are padding and dropped.
 
         On CUDA each batch is staged in pinned host memory, copied to the
         card without blocking, decided by the kernel, and its motion is
@@ -163,9 +225,14 @@ class MVClusterDetector:
         futures = []
         for lo in range(0, n, db):
             hi = min(lo + db, n)
-            rows = np.ascontiguousarray(get_rows(lo, hi))
+            rows = get_rows(lo, hi)
+            rows = (tuple(np.ascontiguousarray(r) for r in rows)
+                    if isinstance(rows, tuple) else
+                    np.ascontiguousarray(rows))
             if self.backend == "torch":
-                futures.append((lo, hi, op(torch.from_numpy(rows)), None))
+                arrays = rows if isinstance(rows, tuple) else (rows,)
+                futures.append((lo, hi, op(*map(torch.from_numpy, arrays)),
+                                None))
                 continue
             futures.append((lo, hi) + stage_and_decide(rows, self.device,
                                                        op))
@@ -175,7 +242,7 @@ class MVClusterDetector:
             for lo, hi, motion, pending in futures:
                 if pending is not None:
                     pending[0].synchronize()
-                out[lo:hi] = motion.numpy()
+                out[lo:hi] = motion.numpy()[:hi - lo]
             return out
 
         return resolve

@@ -17,10 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mvtrim_tpu.core import oracle
-from mvtrim_tpu.core.config import Config
-from mvtrim_tpu.core.types import GridGeometry
-
+from ..core import oracle
+from ..core.config import Config
+from ..core.types import GridGeometry
 from ..ops import sad as sad_ops
 from .mv_detector import resolve_backend, stage_and_decide
 

@@ -4,8 +4,9 @@
 C interface, under ``build/mvtrim_tpu_torch/`` at the root of the
 checkout, and ``ctypes`` loads it.  The sources compile in parallel, one
 ``nvcc`` each, and are linked in one more step.  The library's name
-carries a hash of all the sources, so an edited, added or removed ``.cu``
-builds anew and an unchanged set is reused.  Nothing here runs at import:
+carries a hash of all the sources and of the headers they include
+(``csrc/*.cuh``), so an edited, added or removed file builds anew and an
+unchanged set is reused.  Nothing here runs at import:
 the CPU build never needs ``nvcc``.
 """
 
@@ -30,6 +31,7 @@ COMPILE_FLAGS = [*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points of the library and their argument types (every pointer
 # and the stream as c_void_p, or ctypes would cut them to 32 bits)
 SIGNATURES = {
@@ -40,6 +42,11 @@ SIGNATURES = {
     "mvt_cluster_map_counts": [_P] + [_I] * 8 + [_P, _P, _P],
     # luma, batch, height, width, block, gh, gw, vec, grid, stream
     "mvt_sad_block_grid": [_P] + [_I] * 7 + [_P, _P],
+    # mvs, mv_counts, batch, m, gh, gw, y_min, y_max, bound, thr, need,
+    # shift, scratch, scratch_blocks, counts, motion, stream
+    "mvt_mv_cluster_counts": [_P, _P] + [_I] * 6 + [_L] + [_I] * 3
+                             + [_P, _I, _P, _P, _P],
+    "mvt_max_shared_per_block": [],
 }
 
 _lock = threading.Lock()
@@ -52,6 +59,10 @@ build_info: dict = {}
 
 def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -70,7 +81,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     digest = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         digest.update(os.path.basename(src).encode() + b"\0")
         with open(src, "rb") as f:
             digest.update(f.read())

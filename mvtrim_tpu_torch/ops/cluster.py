@@ -29,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mvtrim_tpu.core.types import GridGeometry
+from ..core.types import GridGeometry
 
 
 def word_geometry(geom: GridGeometry) -> tuple[int, int, int]:

@@ -8,7 +8,8 @@ turned into an integer bound), and the active blocks run through the
 vote-level cluster rule of ``ops/cluster.py``.
 
 ``sad_op`` is the one entry: on a CUDA tensor it launches the block-SAD
-kernel (``csrc/sad_block.cu``) and then the cluster-map kernel
+kernel (``csrc/sad_block.cu``, through ``sad_grid_op``, which the SAD
+sweep calls too) and then the cluster-map kernel
 (``csrc/cluster_map.cu``) on the int32 grid; on a CPU tensor it runs
 ``sad_block_grid_plain`` and ``cluster_map_counts_plain``.  Nothing falls
 back from one to the other.  Luma is taken unpadded: pixels of a partial
@@ -26,8 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mvtrim_tpu.core.types import GridGeometry
-
+from ..core.types import GridGeometry
 from . import cluster as cluster_ops
 
 
@@ -120,26 +120,36 @@ def _launch_grid(luma: torch.Tensor, geom: GridGeometry,
     return grid
 
 
+def sad_grid_op(luma: torch.Tensor, geom: GridGeometry,
+                block_size: int) -> torch.Tensor:
+    """luma uint8 [1+B, H, W] on the card -> int32 block-SAD grid [B, gh,
+    gw] from the block-SAD kernel (``sad_grid_op.launches`` counts its
+    launches)."""
+    _check_luma(luma, geom, block_size)
+    grid = _launch_grid(luma, geom, block_size)
+    with cluster_ops._launch_lock:
+        sad_grid_op.launches += 1
+    return grid
+
+
+sad_grid_op.launches = 0
+
+
 def sad_op(luma: torch.Tensor, geom: GridGeometry, *, sad_threshold: float,
            block_size: int, clusters_needed: int):
     """luma uint8 [1+B, H, W] (frame 0 = carry, unpadded) -> (counts
     int32 [B], motion bool [B]).
 
-    A CUDA tensor goes to the block-SAD kernel and then the cluster-map
-    kernel (``sad_op.launches`` counts the SAD launches); a CPU tensor to
-    the two plain versions; any other device raises.
+    A CUDA tensor goes to the block-SAD kernel (``sad_grid_op``) and then
+    the cluster-map kernel; a CPU tensor to the two plain versions; any
+    other device raises.
     """
     _check_luma(luma, geom, block_size)
     bound = sad_threshold_sum(sad_threshold, block_size)
     if luma.device.type == "cuda":
-        grid = _launch_grid(luma, geom, block_size)
-        with cluster_ops._launch_lock:
-            sad_op.launches += 1
+        grid = sad_grid_op(luma, geom, block_size)
         return cluster_ops.cluster_map_op(grid, geom, bound, clusters_needed)
     if luma.device.type == "cpu":
         grid = sad_block_grid_plain(luma, block_size)
         return cluster_ops.cluster_map_op(grid, geom, bound, clusters_needed)
     raise RuntimeError(f"sad_op runs on cuda or cpu tensors, not {luma.device}")
-
-
-sad_op.launches = 0

@@ -6,17 +6,15 @@ host-decode / device-analyze split, as in ``mvtrim_tpu/pipeline``:
   probe -> chunked parallel host decode (threads over a shared task queue,
   each with its own mmap'd decoder; ctypes releases the GIL) -> per-chunk
   payloads stream through the detector (MVClusterDetector on the CUDA
-  word-cluster or cluster-map kernel; SADDetector on the block-SAD and
-  cluster-map kernels) -> motion timestamps -> merge (sort+unique) -> gap
-  segmentation with padding -> savings decision -> lossless cut (direct or
-  via CutQueue).
+  word-cluster, cluster-map or fused raw-MV kernel; SADDetector on the
+  block-SAD and cluster-map kernels) -> motion timestamps -> merge
+  (sort+unique) -> gap segmentation with padding -> savings decision ->
+  lossless cut (direct or via CutQueue).
 
-This port runs the MV scan over the ``bits``, ``words`` and ``grids``
-payloads and the pixel-domain SAD scan (``MVT_PIPELINE=sad``, and the
-``auto`` fallback when no frame carries MV side data).  The ``mv_raw``
-payload is not ported yet: choosing it fails the video with a message
-naming its ROADMAP.md item.  Phase accounting mirrors the reference's
-timing tree (pipeline.cpp:274-292).
+This port runs the MV scan over the ``bits``, ``words``, ``grids`` and
+``mv_raw`` payloads and the pixel-domain SAD scan (``MVT_PIPELINE=sad``,
+and the ``auto`` fallback when no frame carries MV side data).  Phase
+accounting mirrors the reference's timing tree (pipeline.cpp:274-292).
 """
 
 from __future__ import annotations
@@ -30,16 +28,15 @@ import time
 
 import numpy as np
 
-from mvtrim_tpu.core import oracle
-from mvtrim_tpu.core.config import Config
-from mvtrim_tpu.core.types import ScanTask
-from mvtrim_tpu.cut.executor import CutJob, CutQueue, execute_cut
-from mvtrim_tpu.io import native
-from mvtrim_tpu.utils import logging as log
-from mvtrim_tpu.utils import system
-from mvtrim_tpu.utils.logging import format_time
-from mvtrim_tpu.utils.timing import TimingCollector, timer
-
+from ..core import oracle
+from ..core.config import Config
+from ..core.types import ScanTask
+from ..cut.executor import CutJob, CutQueue, execute_cut
+from ..io import native
+from ..utils import logging as log
+from ..utils import system
+from ..utils.logging import format_time
+from ..utils.timing import TimingCollector, timer
 from ..models.mv_detector import MVClusterDetector
 from ..models.sad_detector import SADDetector
 from ..ops.cluster import word_geometry
@@ -269,6 +266,9 @@ class ProcessingPipeline:
                   GIL-released decode workers
           grids — uint8 vote grids, thresholded on the device by the
                   cluster-map kernel
+          mv_raw — raw MV fields, thresholded, scattered and clustered on
+                  the device by the fused raw-MV kernel (for hosts whose
+                  CPU cannot keep up with the vote scatter)
         """
         sid = self.stream_id
         scan_input = self.cfg.scan_input
@@ -284,10 +284,10 @@ class ProcessingPipeline:
                      "MV-less frames; using the bits payload "
                      "(identical decisions)", sid)
             return "bits"
-        if scan_input == "mv_raw":
-            raise RuntimeError(
-                "MVT_SCAN_INPUT=mv_raw is not ported to mvtrim_tpu_torch "
-                "yet: ROADMAP.md queue 1 item 8")
+        if scan_input == "mv_raw" and self.cfg.heatmap_path:
+            log.warn("MVT_HEATMAP is unavailable with MVT_SCAN_INPUT="
+                     "mv_raw (no per-cell grids on host); skipping heatmap",
+                     sid)
         return scan_input
 
     def _parallel_scan(self, kind: str, fps: float, width: int,
@@ -347,6 +347,21 @@ class ProcessingPipeline:
         elif scan_input == "words":
             detector.scan_words(
                 np.zeros((1, word_geometry(geom)[1]), np.int32))
+        elif scan_input == "mv_raw":
+            # both dispatch buckets frames will land in: the small one
+            # (tail chunks) and the one a typical chunk pads to, estimated
+            # as the workers produce it (a chunk's analyzed frames are
+            # decoded/skip, capped at max_frames a call)
+            detector.scan_raw_mvs(np.zeros((1, cfg.mv_capacity, 4), np.int16),
+                                  np.zeros((1,), np.int32))
+            expect = min(max_frames, int(math.ceil(math.ceil(
+                cfg.chunk_duration_sec * max(fps, 1.0))
+                / max(1, frame_skip))) + 64)
+            n_warm = min(detector.device_batch, max(256, expect))
+            if n_warm > 256:
+                detector.scan_raw_mvs(
+                    np.zeros((n_warm, cfg.mv_capacity, 4), np.int16),
+                    np.zeros((n_warm,), np.int32))
         else:
             detector.scan_votes(np.zeros((1, geom.gh, geom.gw), np.uint8))
         warmup_us = (time.perf_counter_ns() - warm_t0) // 1000
@@ -386,7 +401,8 @@ class ProcessingPipeline:
                 t0 = time.perf_counter_ns()
                 reader = native.VideoReader(self.input_path, reader_mode)
                 init_us[widx] = (time.perf_counter_ns() - t0) // 1000
-                scan = getattr(reader, f"scan_{scan_input}")
+                scan = getattr(reader, "scan_mvs" if scan_input == "mv_raw"
+                               else f"scan_{scan_input}")
                 while True:
                     task = tasks.get()
                     if task is None:
@@ -403,22 +419,60 @@ class ProcessingPipeline:
                     # sub-scan into the next as its carry, so the first
                     # frame of a resumed sub-scan is compared to its real
                     # predecessor: the cap never changes decisions.
+                    # The mv_raw payload restarts the whole chunk when a
+                    # frame's MVs overflow the capacity (see below).
                     resume = False
                     luma_carry = None
+                    cap = cfg.mv_capacity
+                    emitted = 0       # frames queued from this chunk
+                    skip_dup = 0      # duplicates to drop after a restart
+                    mv_base = timings[widx].frames_with_mvs
                     while True:
-                        data, pts = scan(
-                            task.start, task.end, **scan_args,
-                            frame_skip=frame_skip, max_frames=max_frames,
-                            timing=timings[widx], resume=resume)
-                        item = (data, pts)
-                        if kind == "sad":
-                            item = ((data, luma_carry), pts)
-                            if len(data):
-                                luma_carry = data[-1].copy()
-                        if len(pts) == 0:
+                        if scan_input == "mv_raw":
+                            mvs, counts, pts = scan(
+                                task.start, task.end, frame_skip=frame_skip,
+                                max_frames=max_frames, max_mv=cap,
+                                timing=timings[widx], resume=resume)
+                            raw_n = len(pts)
+                            if raw_n and (counts < 0).any():
+                                # capacity overflow: restart the WHOLE
+                                # chunk from a fresh seek at a capacity
+                                # that fits every frame, so the decision is
+                                # over the complete MV lists (the feeder
+                                # decides them on the host oracle).  Decode
+                                # is deterministic, so the restart replays
+                                # the frames already queued from this
+                                # chunk: drop those duplicates, and rewind
+                                # the native frames_with_mvs counter so the
+                                # re-decode counts each frame once.
+                                cap = 1 << int(np.ceil(np.log2(
+                                    -counts.min())))
+                                resume = False
+                                skip_dup = emitted
+                                timings[widx].frames_with_mvs = mv_base
+                                continue
+                            k = min(skip_dup, raw_n)
+                            skip_dup -= k
+                            tag = "mv" if cap == cfg.mv_capacity \
+                                else "mv_host"
+                            item = ((tag, mvs[k:], counts[k:]), pts[k:])
+                        else:
+                            data, pts = scan(
+                                task.start, task.end, **scan_args,
+                                frame_skip=frame_skip, max_frames=max_frames,
+                                timing=timings[widx], resume=resume)
+                            raw_n = len(pts)
+                            item = (data, pts)
+                            if kind == "sad":
+                                item = ((data, luma_carry), pts)
+                                if len(data):
+                                    luma_carry = data[-1].copy()
+                        if raw_n == 0:
                             break
-                        results.put(item)
-                        if len(pts) < max_frames:
+                        if len(item[1]):  # empty after a duplicate drop
+                            emitted += len(item[1])
+                            results.put(item)
+                        if raw_n < max_frames:
                             break
                         resume = True
                 reader.close()
@@ -443,6 +497,15 @@ class ProcessingPipeline:
                 # the SAD scan decides each sub-scan on the spot
                 motion = detector.scan_luma(data[0], carry=data[1])
                 return lambda: motion
+        elif scan_input == "mv_raw":
+            def dispatch(data):
+                tag, mvs, counts = data
+                if tag == "mv":
+                    return detector.scan_raw_mvs_async(mvs, counts)
+                # overflow re-scan: decided on the host oracle over the
+                # complete (re-decoded) MV lists — exact, and rare
+                motion = detector.decide_raw_mvs_on_host(mvs, counts)
+                return lambda: motion
         else:
             dispatch = {"bits": detector.scan_bits_async,
                         "words": detector.scan_words_async,
@@ -453,7 +516,8 @@ class ProcessingPipeline:
         done_workers = 0
         # optional spatial analytics riding the already-decoded masks
         heat_acc = (np.zeros((geom.gh, geom.gw), np.int64)
-                    if cfg.heatmap_path and kind == "mv" else None)
+                    if (cfg.heatmap_path and kind == "mv"
+                        and scan_input != "mv_raw") else None)
         while done_workers < n_threads:
             item = results.get()
             if item is None:

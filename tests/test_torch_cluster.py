@@ -9,6 +9,7 @@ which runs only where a card is present (``python -m pytest -m cuda
 tests/test_torch_cluster.py``).
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -17,9 +18,9 @@ import pytest
 import torch
 
 from mvtrim_tpu.core import oracle
-from mvtrim_tpu.core.config import Config
-from mvtrim_tpu.core.types import GridGeometry
+from mvtrim_tpu.core.types import GridGeometry as JaxGeometry
 from mvtrim_tpu.ops import cluster as jax_cluster
+from mvtrim_tpu_torch.core import Config, GridGeometry
 from mvtrim_tpu_torch.ops import _build
 from mvtrim_tpu_torch.ops import cluster as torch_cluster
 
@@ -31,6 +32,11 @@ GEOMETRIES = [
     ((1024, 576), 0.05),    # gw=64: a multiple of 32
     ((512, 2048), 0.0),     # one word per row, used == lanes
 ]
+
+
+def jx(geom):
+    """The JAX package's GridGeometry with the fields of a port one."""
+    return JaxGeometry(**dataclasses.asdict(geom))
 
 
 def masks(seed, b, geom):
@@ -58,11 +64,11 @@ def case(dims, vm, b):
 class TestAgainstJax:
     def test_plain_matches_oracle_and_xla(self, dims, vm, b):
         cfg, geom, words, expect = case(dims, vm, b)
-        _, used, lanes = jax_cluster.word_geometry(geom)
+        _, used, lanes = jax_cluster.word_geometry(jx(geom))
         padded = np.zeros((b, lanes), np.int32)
         padded[:, :used] = words
         xla_counts, xla_motion = jax_cluster.make_cluster_words_op_xla(
-            geom, cfg.clusters_needed)(jnp.asarray(padded))
+            jx(geom), cfg.clusters_needed)(jnp.asarray(padded))
 
         plain = torch_cluster.word_cluster_counts_plain(
             torch.from_numpy(words), geom)
@@ -81,11 +87,11 @@ class TestAgainstJax:
         """The TPU kernel this port replaces, in interpret mode, fed the
         transposed 128-lane-padded layout it takes."""
         cfg, geom, words, expect = case(dims, vm, b)
-        _, used, lanes = jax_cluster.word_geometry(geom)
+        _, used, lanes = jax_cluster.word_geometry(jx(geom))
         wt = np.zeros((lanes, b), np.int32)
         wt[:used] = words.T
         op = jax_cluster.make_cluster_words_op_pallas_T(
-            geom, cfg.clusters_needed, block_b=b, interpret=True)
+            jx(geom), cfg.clusters_needed, block_b=b, interpret=True)
         pallas_counts, pallas_motion = op(jnp.asarray(wt))
         counts, motion = torch_cluster.cluster_words_op(
             torch.from_numpy(words), geom, cfg.clusters_needed)
@@ -105,18 +111,18 @@ class TestGeometryState:
         cfg = Config(vertical_mask=vm)
         geom = GridGeometry.build(dims[0], dims[1], cfg)
         assert torch_cluster.word_geometry(geom) == \
-            jax_cluster.word_geometry(geom)
+            jax_cluster.word_geometry(jx(geom))
         bits = np.packbits(masks(3, 5, geom), axis=2, bitorder="little")
         ours = torch_cluster.repack_bits_words(bits, geom)
-        theirs = jax_cluster.repack_bits_words(bits, geom)
+        theirs = jax_cluster.repack_bits_words(bits, jx(geom))
         assert ours.dtype == theirs.dtype and ours.shape == theirs.shape
         assert ours.tobytes() == theirs.tobytes()
 
     def test_kernel_center_formula_matches_word_masks(self, dims, vm):
         cfg = Config(vertical_mask=vm)
         geom = GridGeometry.build(dims[0], dims[1], cfg)
-        _, used, _ = jax_cluster.word_geometry(geom)
-        center = jax_cluster._word_masks(geom)[0]
+        _, used, _ = jax_cluster.word_geometry(jx(geom))
+        center = jax_cluster._word_masks(jx(geom))[0]
         ours = torch_cluster.center_word_mask(geom)
         assert ours.dtype == np.int32 and ours.shape == (used,)
         assert ours.tobytes() == center[:used].tobytes()
@@ -190,15 +196,29 @@ class TestWrapper:
         assert _build.library_path() == second
         assert first.startswith(_build.BUILD_DIR)
 
+    def test_library_name_follows_the_headers(self, monkeypatch, tmp_path):
+        """A header the sources include is hashed too: editing it names a
+        new library, so no stale build is loaded."""
+        (tmp_path / "k.cu").write_text('#include "rule.cuh"\n')
+        (tmp_path / "rule.cuh").write_text("// one\n")
+        monkeypatch.setattr(_build, "CSRC_DIR", str(tmp_path))
+        first = _build.library_path()
+        (tmp_path / "rule.cuh").write_text("// two\n")
+        assert _build.library_path() != first
+        assert [os.path.basename(h) for h in _build.headers()] == \
+            ["rule.cuh"]
+        assert [os.path.basename(s) for s in _build.sources()] == ["k.cu"]
+
     def test_every_source_is_built_and_bound(self):
         """Each csrc/*.cu is in the build, and each C entry point the
         wrappers call has its argument types declared."""
         names = {os.path.basename(s) for s in _build.sources()}
-        assert {"word_cluster.cu", "cluster_map.cu",
-                "sad_block.cu"} <= names
+        assert {"word_cluster.cu", "cluster_map.cu", "sad_block.cu",
+                "mv_cluster.cu"} <= names
         assert set(_build.SIGNATURES) == {
             "mvt_word_cluster_counts", "mvt_cluster_map_counts",
-            "mvt_sad_block_grid"}
+            "mvt_sad_block_grid", "mvt_mv_cluster_counts",
+            "mvt_max_shared_per_block"}
         for src in _build.sources():
             with open(src) as f:
                 text = f.read()

@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from mvtrim_tpu.core.config import Config
+from mvtrim_tpu.core.config import Config as JaxConfig
 from mvtrim_tpu.models.mv_detector import MVClusterDetector as JaxDetector
+from mvtrim_tpu_torch.core import Config
 from mvtrim_tpu_torch.models import mv_detector as torch_detector
 from mvtrim_tpu_torch.models.mv_detector import MVClusterDetector
 from mvtrim_tpu_torch.ops.cluster import repack_bits_words
@@ -33,8 +34,8 @@ class TestScanParity:
         port = MVClusterDetector(*dims, Config(scan_backend="torch",
                                                device_batch=16))
         assert port.device_batch == 16
-        jax_det = JaxDetector(*dims, Config(scan_backend="xla",
-                                            device_batch=16))
+        jax_det = JaxDetector(*dims, JaxConfig(scan_backend="xla",
+                                               device_batch=16))
         ref = MVClusterDetector(*dims, Config(scan_backend="oracle"))
         bits = packed(n + dims[0], n, port)
         words = repack_bits_words(bits, port.geom)
@@ -87,19 +88,25 @@ class TestDetector:
             MVClusterDetector(640, 480, Config(scan_backend=backend))
 
     def test_unported_payloads_raise(self):
-        """mv_raw (item 8) still raises; the grids payload (item 7) is
-        ported and decides as the JAX detector does."""
+        """Every payload is ported now: the grids (item 7) and raw-MV
+        (item 8) payloads decide as the JAX detector does; what still
+        raises is an overflowed raw-MV frame, as it does there."""
         det = MVClusterDetector(640, 480, Config(scan_backend="torch"))
+        jax_det = JaxDetector(640, 480, JaxConfig(scan_backend="xla"))
         rng = np.random.default_rng(8)
         grids = rng.integers(0, 4, size=(20, det.geom.gh, det.geom.gw),
                              dtype=np.uint8)
-        np.testing.assert_array_equal(
-            det.scan_votes_async(grids)(),
-            JaxDetector(640, 480, Config(scan_backend="xla")).scan_votes(
-                grids))
-        with pytest.raises(RuntimeError, match="queue 1 item 8"):
-            det.scan_raw_mvs_async(np.zeros((1, 8, 4), np.int16),
-                                   np.ones((1,), np.int32))
+        np.testing.assert_array_equal(det.scan_votes_async(grids)(),
+                                      jax_det.scan_votes(grids))
+        mvs = rng.integers(0, 640, size=(20, 64, 4)).astype(np.int16)
+        mvs[:, :32, :2] = rng.integers(100, 140, size=(20, 32, 2))
+        mvs[..., 2:] = mvs[..., :2] - 4
+        counts = rng.integers(0, 65, size=20).astype(np.int32)
+        np.testing.assert_array_equal(det.scan_raw_mvs_async(mvs, counts)(),
+                                      jax_det.scan_raw_mvs(mvs, counts))
+        for d in (det, jax_det):
+            with pytest.raises(ValueError, match="overflowed"):
+                d.scan_raw_mvs_async(mvs[:1], -counts[:1] - 1)
 
     def test_words_shape_checked(self):
         det = MVClusterDetector(640, 480, Config(scan_backend="torch"))

@@ -9,16 +9,19 @@ is checked by the ``cuda``-marked test, which runs only where a card is
 present (``python -m pytest -m cuda tests/test_torch_grids.py``).
 """
 
+import dataclasses
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
 from mvtrim_tpu.core import oracle
-from mvtrim_tpu.core.config import Config
-from mvtrim_tpu.core.types import GridGeometry
+from mvtrim_tpu.core.config import Config as JaxConfig
+from mvtrim_tpu.core.types import GridGeometry as JaxGeometry
 from mvtrim_tpu.models.mv_detector import MVClusterDetector as JaxDetector
 from mvtrim_tpu.ops import cluster as jax_cluster
+from mvtrim_tpu_torch.core import Config, GridGeometry
 from mvtrim_tpu_torch.models.mv_detector import MVClusterDetector
 from mvtrim_tpu_torch.ops import cluster as torch_cluster
 
@@ -30,6 +33,11 @@ GEOMETRIES = [  # (width, height, vertical_mask)
     (96, 32, 0.0),        # gh=2, gw=6
 ]
 VECTORS_NEEDED = (0, 1, 2, 5, 255)
+
+
+def jx(geom):
+    """The JAX package's GridGeometry with the fields of a port one."""
+    return JaxGeometry(**dataclasses.asdict(geom))
 
 
 def votes(seed, b, geom, high=4):
@@ -54,8 +62,8 @@ def case(dims_vm, b):
 def test_plain_matches_xla_and_oracle(dims_vm, vn):
     cfg, geom, v = case(dims_vm, 5)
     xla_counts, xla_motion = jax_cluster.make_cluster_op_xla(
-        geom, vn, cfg.clusters_needed)(jax_cluster.pad_votes(
-            jnp.asarray(v), geom))
+        jx(geom), vn, cfg.clusters_needed)(jax_cluster.pad_votes(
+            jnp.asarray(v), jx(geom)))
     expect = oracle.count_clusters_batch(v, vectors_needed=vn,
                                          y_min=geom.y_min, y_max=geom.y_max)
     np.testing.assert_array_equal(np.asarray(xla_counts), expect)
@@ -78,8 +86,9 @@ def test_matches_pallas_interpret(dims_vm):
     cfg, geom, v = case(dims_vm, 4)
     for vn in (0, 2):
         op = jax_cluster.make_cluster_op_pallas(
-            geom, vn, cfg.clusters_needed, block_b=4, interpret=True)
-        p_counts, p_motion = op(jax_cluster.pad_votes(jnp.asarray(v), geom))
+            jx(geom), vn, cfg.clusters_needed, block_b=4, interpret=True)
+        p_counts, p_motion = op(jax_cluster.pad_votes(jnp.asarray(v),
+                                                      jx(geom)))
         counts, motion = torch_cluster.cluster_map_op(
             torch.from_numpy(v), geom, vn, cfg.clusters_needed)
         np.testing.assert_array_equal(np.asarray(p_counts), counts.numpy())
@@ -95,7 +104,7 @@ def test_int32_grid_with_a_large_threshold(dims_vm):
     grid = rng.integers(0, 6000, size=(3, geom.gh, geom.gw)).astype(np.int32)
     for bound in (0, 3071, 3072, 3073):
         expect = np.asarray(jax_cluster.cluster_counts_traced(
-            jnp.asarray(grid), geom, jnp.int32(bound)))
+            jnp.asarray(grid), jx(geom), jnp.int32(bound)))
         counts, _ = torch_cluster.cluster_map_op(
             torch.from_numpy(grid), geom, bound, cfg.clusters_needed)
         np.testing.assert_array_equal(counts.numpy(), expect)
@@ -160,8 +169,9 @@ def test_scan_votes_matches_jax_detector(dims, vn):
     port = MVClusterDetector(*dims, Config(scan_backend="torch",
                                            device_batch=16,
                                            vectors_needed=vn))
-    jax_det = JaxDetector(*dims, Config(scan_backend="xla", device_batch=16,
-                                        vectors_needed=vn))
+    jax_det = JaxDetector(*dims, JaxConfig(scan_backend="xla",
+                                           device_batch=16,
+                                           vectors_needed=vn))
     ref = MVClusterDetector(*dims, Config(scan_backend="oracle",
                                           vectors_needed=vn))
     grids = votes(dims[0] + vn, 40, port.geom)

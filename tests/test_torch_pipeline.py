@@ -17,13 +17,15 @@ import time
 import pytest
 import torch
 
-from mvtrim_tpu.core.config import Config
-from mvtrim_tpu.io import native
+from mvtrim_tpu.core.config import Config as JaxConfig
 from mvtrim_tpu.pipeline.pipeline import ProcessingPipeline as JaxPipeline
-from mvtrim_tpu.utils.timing import TimingCollector
+from mvtrim_tpu.utils.timing import TimingCollector as JaxTiming
 from mvtrim_tpu_torch.batch.batch import BatchProcessor, list_videos
 from mvtrim_tpu_torch.cli import main as cli_main
+from mvtrim_tpu_torch.core import Config
+from mvtrim_tpu_torch.io import native
 from mvtrim_tpu_torch.pipeline.pipeline import ProcessingPipeline
+from mvtrim_tpu_torch.utils.timing import TimingCollector
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TORCH = Config(scan_backend="torch")
@@ -49,8 +51,10 @@ def static_clip(tmp_path_factory):
 @pytest.fixture(autouse=True)
 def clear_timing():
     TimingCollector.clear()
+    JaxTiming.clear()
     yield
     TimingCollector.clear()
+    JaxTiming.clear()
 
 
 def probe(path):
@@ -66,7 +70,7 @@ class TestSingleFile:
             cfg=Config(scan_backend="torch", scan_input=scan_input))
         theirs = JaxPipeline(
             motion_clip, str(tmp_path / "theirs.mp4"),
-            cfg=Config(scan_backend="xla", scan_input=scan_input))
+            cfg=JaxConfig(scan_backend="xla", scan_input=scan_input))
         assert ours.run() == 0 and theirs.run() == 0
         assert (ours.time_removed, ours.saved_pct) == \
             (theirs.time_removed, theirs.saved_pct)
@@ -89,13 +93,14 @@ class TestSingleFile:
                                cfg=TORCH)
         assert p.run() == 1
 
-    @pytest.mark.parametrize("cfg", [
-        Config(scan_backend="torch", scan_input="mv_raw"),
-    ], ids=["mv_raw"])
-    def test_unported_paths_fail(self, static_clip, tmp_path, capsys, cfg):
+    def test_mv_raw_static_clip_no_output(self, static_clip, tmp_path,
+                                          capsys):
+        """mv_raw is ported: a static clip scans clean and, with no
+        motion, writes nothing."""
         out = str(tmp_path / "o.mp4")
-        assert ProcessingPipeline(static_clip, out, cfg=cfg).run() == 1
-        assert "ROADMAP.md queue 1 item" in capsys.readouterr().out
+        cfg = Config(scan_backend="torch", scan_input="mv_raw")
+        assert ProcessingPipeline(static_clip, out, cfg=cfg).run() == 0
+        assert "No motion found." in capsys.readouterr().out
         assert not os.path.exists(out)
 
     def test_grids_matches_jax_pipeline(self, motion_clip, tmp_path):
@@ -106,7 +111,7 @@ class TestSingleFile:
             cfg=Config(scan_backend="torch", scan_input="grids"))
         theirs = JaxPipeline(
             motion_clip, str(tmp_path / "theirs.mp4"),
-            cfg=Config(scan_backend="xla", scan_input="grids"))
+            cfg=JaxConfig(scan_backend="xla", scan_input="grids"))
         assert ours.run() == 0 and theirs.run() == 0
         assert (ours.time_removed, ours.saved_pct) == \
             (theirs.time_removed, theirs.saved_pct)
@@ -129,8 +134,8 @@ class TestSingleFile:
                        heatmap_path=str(heat_ours)))
         theirs = JaxPipeline(
             motion_clip, str(tmp_path / "b.mp4"),
-            cfg=Config(scan_backend="xla", scan_input="grids",
-                       heatmap_path=str(heat_theirs)))
+            cfg=JaxConfig(scan_backend="xla", scan_input="grids",
+                          heatmap_path=str(heat_theirs)))
         assert ours.run() == 0 and theirs.run() == 0
         doc = json.loads(heat_ours.read_text())
         assert doc == json.loads(heat_theirs.read_text())
@@ -164,7 +169,8 @@ class TestSingleFile:
         assert ours.run() == 0
         theirs = JaxPipeline(
             motion_clip, str(tmp_path / "b.mp4"),
-            cfg=Config(scan_backend="oracle", heatmap_path=str(heat_theirs)))
+            cfg=JaxConfig(scan_backend="oracle",
+                          heatmap_path=str(heat_theirs)))
         assert theirs.run() == 0
         assert json.loads(heat_ours.read_text())["activity"] == \
             json.loads(heat_theirs.read_text())["activity"]
@@ -190,12 +196,13 @@ class TestBatch:
         assert not os.path.exists(out_dir / "b_static.mp4")  # no motion
 
     def test_failures_are_the_exit_code(self, static_clip, tmp_path):
+        """Two inputs that do not open fail; the clean one does not."""
         in_dir = tmp_path / "in"
         in_dir.mkdir()
-        os.symlink(static_clip, in_dir / "a.mp4")
-        os.symlink(static_clip, in_dir / "b.mp4")
-        bp = BatchProcessor(2, Config(scan_backend="torch",
-                                      scan_input="mv_raw"))
+        (in_dir / "a.mp4").write_bytes(b"not a video")
+        (in_dir / "b.mp4").write_bytes(b"")
+        os.symlink(static_clip, in_dir / "c.mp4")
+        bp = BatchProcessor(2, TORCH)
         assert bp.process(list_videos(str(in_dir)),
                           str(tmp_path / "out")) == 2
 

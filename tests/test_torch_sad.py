@@ -8,6 +8,7 @@ the tolerance is exact equality.  The CUDA kernels are checked by the
 ``cuda``-marked test (``python -m pytest -m cuda tests/test_torch_sad.py``).
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -17,20 +18,22 @@ import numpy as np
 import pytest
 import torch
 
-from mvtrim_tpu.core.config import Config
-from mvtrim_tpu.core.types import GridGeometry
+from mvtrim_tpu.core.config import Config as JaxConfig
+from mvtrim_tpu.core.types import GridGeometry as JaxGeometry
 from mvtrim_tpu.io import native
 from mvtrim_tpu.models.sad_detector import SADDetector as JaxSADDetector
 from mvtrim_tpu.models.sad_detector import \
     sad_oracle_counts as jax_sad_oracle_counts
 from mvtrim_tpu.ops import sad as jax_sad
 from mvtrim_tpu.pipeline.pipeline import ProcessingPipeline as JaxPipeline
-from mvtrim_tpu.utils.timing import TimingCollector
+from mvtrim_tpu.utils.timing import TimingCollector as JaxTiming
 from mvtrim_tpu_torch.cli import main as cli_main
+from mvtrim_tpu_torch.core import Config, GridGeometry
 from mvtrim_tpu_torch.models.sad_detector import SADDetector, \
     sad_oracle_counts
 from mvtrim_tpu_torch.ops import sad as torch_sad
 from mvtrim_tpu_torch.pipeline.pipeline import ProcessingPipeline
+from mvtrim_tpu_torch.utils.timing import TimingCollector
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CFG = Config()
@@ -51,8 +54,15 @@ def intra_clip(tmp_path_factory):
 @pytest.fixture(autouse=True)
 def clear_timing():
     TimingCollector.clear()
+    JaxTiming.clear()
     yield
     TimingCollector.clear()
+    JaxTiming.clear()
+
+
+def jx(geom):
+    """The JAX package's GridGeometry with the fields of a port one."""
+    return JaxGeometry(**dataclasses.asdict(geom))
 
 
 def near_threshold_luma(seed, n, width, height, bound=BOUND):
@@ -86,10 +96,10 @@ def near_threshold_luma(seed, n, width, height, bound=BOUND):
 
 
 def jax_counts(luma, geom, sad_threshold=CFG.sad_threshold):
-    op = jax_sad.make_sad_op_xla(geom, sad_threshold=sad_threshold,
+    op = jax_sad.make_sad_op_xla(jx(geom), sad_threshold=sad_threshold,
                                  block_size=BS,
                                  clusters_needed=CFG.clusters_needed)
-    counts, motion = op(jax_sad.pad_luma(luma, geom, BS))
+    counts, motion = op(jax_sad.pad_luma(luma, jx(geom), BS))
     return np.asarray(counts), np.asarray(motion)
 
 
@@ -109,7 +119,7 @@ class TestAgainstJax:
         np.testing.assert_array_equal(
             sad_oracle_counts(luma, geom, **kw), expect)
         np.testing.assert_array_equal(
-            jax_sad_oracle_counts(luma, geom, **kw), expect)
+            jax_sad_oracle_counts(luma, jx(geom), **kw), expect)
         assert expect.any()
 
     def test_threshold_zero(self, dims):
@@ -151,10 +161,10 @@ def test_matches_pallas_interpret():
         block_size=BS, clusters_needed=CFG.clusters_needed)
     for fps_n in (1, 3):
         op = jax_sad.make_sad_op_pallas(
-            geom, sad_threshold=CFG.sad_threshold, block_size=BS,
+            jx(geom), sad_threshold=CFG.sad_threshold, block_size=BS,
             clusters_needed=CFG.clusters_needed, height=240, width=320,
             interpret=True, frames_per_step=fps_n)
-        p_counts, p_motion = op(jax_sad.pad_luma(luma, geom, BS))
+        p_counts, p_motion = op(jax_sad.pad_luma(luma, jx(geom), BS))
         np.testing.assert_array_equal(np.asarray(p_counts), counts.numpy())
         np.testing.assert_array_equal(np.asarray(p_motion), motion.numpy())
 
@@ -165,12 +175,12 @@ def test_matches_pallas_sliced_k7():
     kernel covers it, so the port must equal it at its geometry."""
     geom = GridGeometry.build(3840, 96, CFG)
     op = jax_sad.make_sad_op_pallas(
-        geom, sad_threshold=CFG.sad_threshold, block_size=BS,
+        jx(geom), sad_threshold=CFG.sad_threshold, block_size=BS,
         clusters_needed=CFG.clusters_needed, height=96, width=3840,
         interpret=True, frames_per_step=1)
     assert op.slices_per_frame == 2
     luma = near_threshold_luma(5, 5, 3840, 96)
-    p_counts, p_motion = op(jax_sad.pad_luma(luma, geom, BS))
+    p_counts, p_motion = op(jax_sad.pad_luma(luma, jx(geom), BS))
     counts, motion = torch_sad.sad_op(
         torch.from_numpy(luma), geom, sad_threshold=CFG.sad_threshold,
         block_size=BS, clusters_needed=CFG.clusters_needed)
@@ -187,7 +197,7 @@ def test_helpers_match_jax():
     luma = np.random.default_rng(0).integers(0, 256, (2, 562, 1000),
                                              dtype=np.uint8)
     assert torch_sad.pad_luma(luma, geom, BS).tobytes() == \
-        jax_sad.pad_luma(luma, geom, BS).tobytes()
+        jax_sad.pad_luma(luma, jx(geom), BS).tobytes()
 
 
 class TestWrapper:
@@ -196,11 +206,11 @@ class TestWrapper:
               clusters_needed=CFG.clusters_needed)
 
     def test_cpu_tensor_runs_plain_and_counts_no_launch(self):
-        before = torch_sad.sad_op.launches
+        before = torch_sad.sad_grid_op.launches
         counts, motion = torch_sad.sad_op(
             torch.zeros((3, 240, 320), dtype=torch.uint8), self.GEOM,
             **self.KW)
-        assert torch_sad.sad_op.launches == before
+        assert torch_sad.sad_grid_op.launches == before
         assert counts.tolist() == [0, 0] and not motion.any()
 
     @pytest.mark.parametrize("bad", ["dtype", "shape", "grid", "stride",
@@ -254,8 +264,8 @@ class TestSADDetector:
         ours = SADDetector(320, 240, Config(scan_backend="torch",
                                             device_batch=64))
         assert ours.device_batch == 8
-        theirs = JaxSADDetector(320, 240, Config(scan_backend="xla",
-                                                 device_batch=64))
+        theirs = JaxSADDetector(320, 240, JaxConfig(scan_backend="xla",
+                                                    device_batch=64))
         luma = self.luma_seq(n, n=max(n, 2))[:n]
         carry = self.luma_seq(n + 1)[0]
         carry[100:140, 100:200] = 255
@@ -311,10 +321,11 @@ def run_pair(clip, tmp_path, tag, **kw):
     """The port (plain build) and the JAX pipeline (XLA build) on one
     clip: (ours, theirs, motion frames and scanned frames of each)."""
     out = {}
-    for name, cls, backend in (("ours", ProcessingPipeline, "torch"),
-                               ("theirs", JaxPipeline, "xla")):
+    for name, cls, config, backend in (
+            ("ours", ProcessingPipeline, Config, "torch"),
+            ("theirs", JaxPipeline, JaxConfig, "xla")):
         metrics = str(tmp_path / f"{tag}_{name}.jsonl")
-        p = cls(clip, str(tmp_path / f"{tag}_{name}.mp4"), cfg=Config(
+        p = cls(clip, str(tmp_path / f"{tag}_{name}.mp4"), cfg=config(
             scan_backend=backend, metrics_json=metrics, **kw))
         assert p.run() == 0
         rec = json.loads(open(metrics).read().splitlines()[-1])
@@ -419,10 +430,10 @@ def test_cuda_kernels_match_plain(dims):
               clusters_needed=CFG.clusters_needed)
     for b in (1, 9):
         luma = torch.from_numpy(near_threshold_luma(b, b + 1, *dims))
-        before = torch_sad.sad_op.launches
+        before = torch_sad.sad_grid_op.launches
         counts, motion = torch_sad.sad_op(luma.cuda(), geom, **kw)
         torch.cuda.synchronize()
-        assert torch_sad.sad_op.launches == before + 1
+        assert torch_sad.sad_grid_op.launches == before + 1
         expect, expect_motion = torch_sad.sad_op(luma, geom, **kw)
         np.testing.assert_array_equal(counts.cpu().numpy(), expect.numpy())
         np.testing.assert_array_equal(motion.cpu().numpy(),
