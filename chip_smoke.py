@@ -1,6 +1,6 @@
 """Smoke run of mvtrim_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--times-only]
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 ``nvcc`` per source, all started together), holds each kernel against its
@@ -90,6 +90,20 @@ GEOMETRIES = [  # (width, height, vertical_mask)
 ]
 BATCHES = (4096, 1, 777)
 VECTORS_NEEDED = (0, 1, 2, 255)
+# K3 at the shapes the paths launch it at, and at frames whose rows take
+# one-cell loads: (width, height, vertical_mask, batch, dtype, byte offset
+# of the base); thresholds THRESHOLDS and, for int32, the SAD bound
+MAP_CASES = [
+    (1920, 1080, 0.05, 64, "int32", 0),     # the SAD window, 1080p
+    (3840, 2160, 0.05, 64, "int32", 0),     # the SAD window, 4K
+    (1920, 1080, 0.05, 2048, "uint8", 0),   # grids payload, tune grids
+    (200, 144, 0.05, 2048, "uint8", 0),     # 117 B a frame
+    (1000, 562, 0.0, 777, "uint8", 0),      # 2,268 B a frame, gw 63
+    (360, 240, 0.0, 64, "int32", 0),        # 1,380 B a frame, margin 0
+    (1920, 1080, 0.05, 777, "uint8", 1),    # base 1 B past 4-B alignment
+    (1920, 1080, 0.05, 64, "int32", 4),     # base 4 B past 16-B alignment
+]
+THRESHOLDS = (-1, 0, 1, 2, 255, 2 ** 31 - 1)
 SAD_GEOMETRIES = [  # (width, height)
     (1920, 1080),   # 1080 = 67*16 + 8: a partial block row
     (3840, 2160),   # 4K: the geometry of the lane-sliced TPU kernel K7
@@ -98,14 +112,18 @@ SAD_GEOMETRIES = [  # (width, height)
     (3840, 96),     # the K7 geometry of the JAX package's tests
 ]
 SAD_BATCHES = (1, 63, 64)
-# the raw-MV kernel: (width, height, capacity M, batches, counts), counts
-# "sparse" log-uniform in 1..M or "full" at M, frames 7, 57, ... 0
+# the raw-MV kernel: (width, height, capacity M, batches, counts, layout),
+# counts "sparse" log-uniform in 1..M or "full" at M, frames 7, 57, ... 0;
+# layouts as device_mvs makes them
 MV_CASES = [
-    (1920, 1080, 8192, (1, 777, 2048), "sparse"),
-    (1920, 1080, 8192, (777, 2048), "full"),
-    (1920, 1080, 3000, (777,), "sparse"),     # not a TPU chunk multiple
-    (3840, 2160, 16384, (777,), "sparse"),    # 4K, 129.6 KB of votes
-    (7680, 4320, 8192, (64,), "sparse"),      # 518 KB: global histograms
+    (1920, 1080, 8192, (1, 777, 2048), "sparse", "boxed"),
+    (1920, 1080, 8192, (777, 2048), "full", "boxed"),
+    (1920, 1080, 8192, (777,), "full", "spread"),
+    (1920, 1080, 8192, (777,), "full", "hot1"),
+    (1920, 1080, 8192, (777,), "sparse", "hot2"),
+    (1920, 1080, 3000, (777,), "sparse", "boxed"),   # not a TPU chunk size
+    (3840, 2160, 16384, (777,), "sparse", "boxed"),  # 4K, 118 KB of votes
+    (7680, 4320, 8192, (64,), "sparse", "boxed"),    # 468 KB: global
 ]
 # tune: MV_THRESHOLD_SQ x VECTORS_NEEDED x CLUSTERS_NEEDED, and the SAD
 # route's SAD_THRESHOLD x CLUSTERS_NEEDED
@@ -116,17 +134,25 @@ TUNE_SAD_THRESHOLDS = (4.0, 12.0, 30.0)
 # the seeded SAD sweep's clip: one 30 s chunk in three cap-resumed
 # sub-scans, then a short second chunk
 TUNE_SAD_SEC = 32.0
-# phase 5: the raw-MV kernel's frames a launch and batches rotated
+# phase 5: the raw-MV kernel's frames a launch and batches rotated, and its
+# cells: (label, geometry, capacity M, counts, layout) as in MV_CASES
 MV_TIMING_BATCH = (2048, 3)
+MV_TIMING = (("1080p", (1920, 1080), 8192, "sparse", "boxed"),
+             ("1080p", (1920, 1080), 8192, "full", "boxed"),
+             ("1080p", (1920, 1080), 8192, "full", "spread"),
+             ("4K", (3840, 2160), 16384, "sparse", "boxed"),
+             ("4K", (3840, 2160), 16384, "full", "boxed"))
 # the card's published peaks (NVIDIA's data sheet, H100 SXM): HBM bytes/s
 # and the float32 CUDA-core rate, the table's nearest entry for the
 # kernels' 32-bit integer operations (Hopper's int32 rate is lower, so the
 # bound stays a lower bound)
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
-# phase 5: frames a launch and device-resident batches (K1, K3); the SAD
-# window and its (label, geometry, windows rotated) cells
+# phase 5: frames a launch and device-resident batches (K1, K3); K3 at the
+# SAD window on its own: (label, geometry, batches rotated); the SAD window
+# and its (label, geometry, windows rotated) cells
 TIMING_BATCH = (2048, 32)
+MAP_WINDOW_TIMING = (("1080p", (1920, 1080), 32), ("4K", (3840, 2160), 8))
 SAD_WINDOW = 64
 SAD_TIMING = (("1080p", (1920, 1080), 3), ("4K", (3840, 2160), 2))
 FPS = 25.0
@@ -318,6 +344,46 @@ def phase_correctness_map(rng) -> int:
                         f"{int((counts != expect).sum())} counts differ")
             log(f"cluster_map {width}x{height} vm={vm} B={b}: kernel == "
                 f"plain == oracle at {', '.join(summary)}")
+    for case in MAP_CASES:
+        worst = max(worst, _check_map_case(rng, case, bound))
+    return worst
+
+
+def _check_map_case(rng, case, bound: int) -> int:
+    """One MAP_CASES entry vs the plain version on the same tensor, exact,
+    at every threshold; returns max |kernel - plain|."""
+    width, height, vm, b, dtype, offset = case
+    cfg = Config(vertical_mask=vm)
+    geom = GridGeometry.build(width, height, cfg)
+    need = oracle.effective_clusters_needed(cfg.clusters_needed)
+    if dtype == "uint8":
+        host = random_votes(rng, b, geom)
+        thresholds = THRESHOLDS
+    else:
+        host = rng.integers(0, 2 * bound, size=(b, geom.gh, geom.gw),
+                            dtype=np.int32)
+        top = rng.random(host.shape, dtype=np.float32)
+        host[top < 0.02] = 2 ** 31 - 1
+        host[(top >= 0.02) & (top < 0.04)] = -1
+        thresholds = THRESHOLDS + (bound,)
+    t = torch.from_numpy(host).cuda()
+    if offset:
+        t = offset_copy(t, offset)
+    worst = 0
+    for thr in thresholds:
+        counts, motion = cluster_ops.cluster_map_op(t, geom, thr,
+                                                    cfg.clusters_needed)
+        plain = cluster_ops.cluster_map_counts_plain(t, geom, thr)
+        torch.cuda.synchronize()
+        err = int((counts.to(torch.int64) - plain).abs().max())
+        worst = max(worst, err)
+        if err or not torch.equal(motion, plain >= need):
+            raise AssertionError(
+                f"cluster_map kernel disagrees at {width}x{height} B={b} "
+                f"{dtype} offset {offset} threshold {thr}")
+    log(f"cluster_map {width}x{height} vm={vm} B={b} {dtype} "
+        f"({geom.gh * geom.gw * host.itemsize} B a frame, base offset "
+        f"{offset} B): kernel == plain at thresholds {thresholds}")
     return worst
 
 
@@ -388,12 +454,15 @@ def phase_correctness_sad(rng) -> int:
 
 
 def device_mvs(gen, counts: torch.Tensor, m: int, width: int,
-               height: int) -> torch.Tensor:
-    """Seeded MV fields int16 [B, m, 4] on the card: dst over the frame and
-    32 pixels past each edge (negative dst included), displacements up to
-    8; every third MV lands in a 128x96 box of its frame, so cells collect
-    several votes and clusters form.  Rows past a frame's count hold
-    noise the kernel must not read."""
+               height: int, layout: str = "boxed") -> torch.Tensor:
+    """Seeded MV fields int16 [B, m, 4] on the card, displacements up to 8.
+    ``boxed``: dst over the frame and 32 pixels past each edge (negative
+    dst included), every third MV in a 128x96 box of its frame (48 cells),
+    so cells collect several votes and clusters form; ``spread``: dst
+    uniform over the frame, a cell collecting about one vote at M = 8192;
+    ``hot1`` / ``hot2``: every MV in one cell, or in two neighbouring
+    cells, of its frame.  Rows past a frame's count hold noise the kernel
+    must not read."""
     b = counts.numel()
     dev = counts.device
 
@@ -401,12 +470,21 @@ def device_mvs(gen, counts: torch.Tensor, m: int, width: int,
         return torch.randint(lo, hi, shape, generator=gen, device=dev,
                              dtype=torch.int32)
 
-    dst_x, dst_y = ints(-32, width + 32, (b, m)), ints(-32, height + 32,
-                                                         (b, m))
-    boxed = torch.arange(m, device=dev) % 3 == 0
-    bx, by = ints(0, width - 128, (b, 1)), ints(0, height - 96, (b, 1))
-    dst_x = torch.where(boxed, bx + ints(0, 128, (b, m)), dst_x)
-    dst_y = torch.where(boxed, by + ints(0, 96, (b, m)), dst_y)
+    margin = 0 if layout == "spread" else 32
+    dst_x = ints(-margin, width + margin, (b, m))
+    dst_y = ints(-margin, height + margin, (b, m))
+    if layout == "boxed":
+        boxed = torch.arange(m, device=dev) % 3 == 0
+        bx, by = ints(0, width - 128, (b, 1)), ints(0, height - 96, (b, 1))
+        dst_x = torch.where(boxed, bx + ints(0, 128, (b, m)), dst_x)
+        dst_y = torch.where(boxed, by + ints(0, 96, (b, m)), dst_y)
+    elif layout in ("hot1", "hot2"):
+        # a cell of the centre window (16-pixel cells), per frame
+        cx = ints(1, width // 16 - 2, (b, 1))
+        cy = ints(height // 64, height // 16 - height // 64, (b, 1))
+        second = torch.arange(m, device=dev) % 2 if layout == "hot2" else 0
+        dst_x = (cx + second) * 16 + ints(0, 16, (b, m))
+        dst_y = cy * 16 + ints(0, 16, (b, m))
     src_x, src_y = dst_x - ints(-8, 9, (b, m)), dst_y - ints(-8, 9, (b, m))
     return torch.stack([dst_x, dst_y, src_x, src_y], dim=2).to(torch.int16)
 
@@ -457,7 +535,7 @@ def phase_correctness_mv(seed: int) -> int:
     cfg = Config()
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     worst = 0
-    for width, height, m, batches, mode in MV_CASES:
+    for width, height, m, batches, mode, layout in MV_CASES:
         geom = GridGeometry.build(width, height, cfg)
         glob = mv_ops.uses_global_histogram(geom, torch.device("cuda"))
         for b in batches:
@@ -468,12 +546,14 @@ def phase_correctness_mv(seed: int) -> int:
                 counts = torch.exp(u * math.log(m)).to(torch.int32)
             counts[7::50] = 0
             counts = counts.cuda()
-            mvs = device_mvs(gen, counts, m, width, height)
+            mvs = device_mvs(gen, counts, m, width, height, layout)
             for vn in VECTORS_NEEDED:
                 worst = max(worst, _check_mv(
-                    mvs, counts, geom, vn, f"{width}x{height} M={m} B={b}"))
+                    mvs, counts, geom, vn,
+                    f"{width}x{height} M={m} B={b} {mode} {layout}"))
             forced = ""
-            if (width, height, b) == (1920, 1080, 777) and mode == "sparse":
+            if ((width, height, m, b, mode, layout)
+                    == (1920, 1080, 8192, 777, "sparse", "boxed")):
                 worst = max(worst, _check_mv(mvs, counts, geom, 2,
                                              "global histogram at 1080p",
                                              global_histogram=True))
@@ -495,7 +575,7 @@ def phase_correctness_mv(seed: int) -> int:
                     raise AssertionError("mv_cluster kernel disagrees with "
                                          "the oracle at 1080p")
                 forced += "; 6 frames == oracle"
-            log(f"mv_cluster {width}x{height} M={m} B={b} {mode} "
+            log(f"mv_cluster {width}x{height} M={m} B={b} {mode} {layout} "
                 f"({'global' if glob else 'shared'} histograms, counts "
                 f"{int(counts.min())}..{int(counts.max())}, mean "
                 f"{counts.float().mean():.1f}): kernel == plain at "
@@ -1080,6 +1160,17 @@ def _time(fn, batches, iters: int) -> tuple[float, torch.Tensor]:
             torch.stack(outs).sum(dtype=torch.int64))
 
 
+def _host_enqueue_us(fn, batches, iters: int = 256) -> float:
+    """Host-clock µs per call of fn, the card never waited for inside."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fn(batches[i % len(batches)])
+    host_us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return host_us
+
+
 def _turns(fns: dict, batches, refs, iters: dict) -> dict:
     """Time each function in turns (a, b, b, a, ...): mean ms per call
     and the runs; every checksum must equal the plain version's."""
@@ -1106,6 +1197,24 @@ def least_time(nbytes: float, ops: float) -> dict:
 def centre_cells(geom: GridGeometry) -> int:
     rows = min(geom.y_max, geom.gh) - max(geom.y_min, 0)
     return max(rows, 0) * max(geom.gw - 2, 0)
+
+
+def map_bytes(geom: GridGeometry, b: int, elem: int) -> int:
+    """Bytes K3's function must move for b frames: the rows its counts
+    depend on (the centre window and one row on each side, inside the
+    grid) read once, counts and motion written."""
+    y_lo, y_hi = max(geom.y_min, 0), min(geom.y_max, geom.gh)
+    rows = 0 if y_hi <= y_lo else \
+        min(y_hi + 1, geom.gh) - max(y_lo - 1, 0)
+    return b * (rows * geom.gw * elem + 5)
+
+
+def offset_copy(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """t's values in a tensor whose base lies offset bytes past an
+    aligned address."""
+    buf = torch.empty(t.numel() * t.element_size() + offset,
+                      dtype=torch.uint8, device=t.device)
+    return buf[offset:].view(t.dtype).view(t.shape).copy_(t)
 
 
 def phase_timing_words(rng, card: str) -> dict:
@@ -1137,14 +1246,8 @@ def phase_timing_words(rng, card: str) -> dict:
         f"runs {p_runs} ms)")
 
     # where a launch's time goes: host enqueue vs the kernel on the card
-    iters = 256
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(iters):
-        kernel(batches[i % n_batches])
-    host_us = (time.perf_counter() - t0) / iters * 1e6
-    torch.cuda.synchronize()
-    log(f"host enqueue per kernel call (wrapper + launch): {host_us:.3f} us")
+    log(f"host enqueue per kernel call (wrapper + launch): "
+        f"{_host_enqueue_us(kernel, batches):.3f} us")
     log(f"kernel device time per launch (torch.profiler): "
         f"{_profiled_kernel_us(kernel, batches, 'word_cluster_kernel')}")
 
@@ -1197,12 +1300,82 @@ def phase_timing_map(seed: int, card: str) -> dict:
         f"{b / k_ms * 1e3:.0f} frames/s; runs {k_runs} ms), plain "
         f"{p_ms * 1e3:.3f} us/launch (runs {p_runs} ms)")
     log(f"cluster_map kernel device time per launch (torch.profiler): "
-        f"{_profiled_kernel_us(kernel, batches, 'cluster_map_kernel')}")
-    # uint8 votes read once, counts and motion written; about 7 integer
-    # operations a centre cell (four maxima, a minimum, a compare, a sum)
-    return {"ms": k_ms, "plain_ms": p_ms,
-            **least_time(b * geom.gh * geom.gw + b * 5,
-                    b * centre_cells(geom) * 7)}
+        f"{_profiled_kernel_us(kernel, batches, 'cluster_map_kernel')}; "
+        f"host enqueue per call {_host_enqueue_us(kernel, batches):.3f} us")
+    _time_map_offset(kernel, batches, 1, f"1080p B={b} uint8", card)
+    # the uint8 rows the counts depend on read once, counts and motion
+    # written; about 7 integer operations a centre cell (four maxima, a
+    # minimum, a compare, a sum)
+    out = {"ms": k_ms, "plain_ms": p_ms,
+           **least_time(map_bytes(geom, b, 1), b * centre_cells(geom) * 7)}
+    del batches
+    for label, (width, height), n_batches in MAP_WINDOW_TIMING:
+        _time_map_window(seed, card, label, width, height, n_batches)
+    return out
+
+
+def _time_map_window(seed: int, card: str, label: str, width: int,
+                     height: int, n_batches: int) -> None:
+    """K3 on its own at the SAD window: B = 64 int32 block-sum grids a
+    launch at the SAD bound, n_batches device-resident batches rotated;
+    event-timed in turns with the plain version, and the profiler's
+    device time, beside the bound."""
+    cfg = Config()
+    geom = GridGeometry.build(width, height, cfg)
+    bound = sad_ops.sad_threshold_sum(cfg.sad_threshold, cfg.block_size)
+    b = SAD_WINDOW
+    gen = torch.Generator(device="cuda").manual_seed(seed + 5)
+    batches = [torch.randint(0, 2 * bound, (b, geom.gh, geom.gw),
+                             dtype=torch.int32, device="cuda", generator=gen)
+               for _ in range(n_batches)]
+    ref = [int(cluster_ops.cluster_map_counts_plain(v, geom, bound).sum())
+           for v in batches]
+
+    def kernel(v):
+        return cluster_ops.cluster_map_op(v, geom, bound,
+                                          cfg.clusters_needed)[0]
+
+    def plain(v):
+        return cluster_ops.cluster_map_counts_plain(v, geom, bound)
+
+    t = _turns({"plain": plain, "kernel": kernel}, batches, ref,
+               {"plain": 32, "kernel": 256})
+    (k_ms, k_runs), (p_ms, p_runs) = t["kernel"], t["plain"]
+    nbytes = map_bytes(geom, b, 4)
+    bnd = least_time(nbytes, b * centre_cells(geom) * 7)
+    log(f"cluster_map timing {label} B={b} int32 at the SAD bound "
+        f"({nbytes / 1e6:.2f} MB/launch, {n_batches} batches rotated) on "
+        f"{card}: kernel {k_ms * 1e3:.3f} us/launch (runs {k_runs} ms), "
+        f"plain {p_ms * 1e3:.3f} us/launch (runs {p_runs} ms), bound "
+        f"{bnd['bound_ms'] * 1e3:.3f} us by {bnd['bound_by']}")
+    log(f"cluster_map kernel device time per launch, {label} B={b} int32 "
+        f"(torch.profiler): "
+        f"{_profiled_kernel_us(kernel, batches, 'cluster_map_kernel')}; "
+        f"host enqueue per call {_host_enqueue_us(kernel, batches):.3f} us")
+    if label == "1080p":
+        _time_map_offset(kernel, batches, 4, f"{label} B={b} int32", card)
+
+
+def _time_map_offset(kernel, batches, offset: int, label: str,
+                     card: str) -> None:
+    """K3 on the same grids at an aligned base (four-cell loads where
+    gw % 4 == 0) and at a base `offset` bytes past it (one-cell loads),
+    in turns: event time, and the profiler's device time of each."""
+    moved = [offset_copy(v, offset) for v in batches]
+    ref = [int(kernel(v).sum()) for v in batches]
+    idx = list(range(len(batches)))
+    t = _turns({"aligned": lambda i: kernel(batches[i]),
+                "offset": lambda i: kernel(moved[i])}, idx, ref,
+               {"aligned": 256, "offset": 256})
+    dev = {name: _profiled_kernel_us(fn, src, "cluster_map_kernel")
+           for name, fn, src in (("aligned", kernel, batches),
+                                 ("offset", kernel, moved))}
+    log(f"cluster_map {label} on {card}, aligned base against {offset} B "
+        f"off: event {t['aligned'][0] * 1e3:.3f} against "
+        f"{t['offset'][0] * 1e3:.3f} us/launch (runs {t['aligned'][1]} / "
+        f"{t['offset'][1]} ms); device time (torch.profiler) "
+        f"{dev['aligned']} against {dev['offset']}")
+    del moved
 
 
 def phase_timing_sad(seed: int, card: str) -> dict:
@@ -1277,9 +1450,9 @@ def phase_timing_sad(seed: int, card: str) -> dict:
                       "h2d_ms": h2d_ms,
                       **least_time(nbytes + b * geom.gh * geom.gw * 4,
                                    b * height * width * 2)}
-        # K3 inside the op: the int32 grid read, counts and motion written
-        k3 = least_time(b * geom.gh * geom.gw * 4 + b * 5,
-                        b * centre_cells(geom) * 7)
+        # K3 inside the op: the int32 rows its counts depend on read,
+        # counts and motion written
+        k3 = least_time(map_bytes(geom, b, 4), b * centre_cells(geom) * 7)
         log(f"sad_block bound {label} B={b}: "
             f"{out[label]['bound_ms'] * 1e3:.3f} us by "
             f"{out[label]['bound_by']}; cluster_map on its int32 grid: "
@@ -1291,27 +1464,33 @@ def phase_timing_sad(seed: int, card: str) -> dict:
 
 
 def phase_timing_mv(seed: int, card: str) -> dict:
-    """The raw-MV kernel at 1080p, B = 2048 frames of M = 8192 MV rows a
-    launch (134.2 MB of int16 fields), three device-resident batches
-    rotated past the L2: sparse counts (log-uniform in 1..M) and full
-    capacity, the kernel against its plain version in turns; and the H2D
-    copy of one batch from pinned memory."""
+    """The raw-MV kernel at the MV_TIMING cells, B = 2048 frames a launch
+    (134.2 MB of int16 fields at 1080p, M = 8192; 268.4 MB at 4K, M =
+    16384), three device-resident batches rotated past the L2: sparse
+    counts (log-uniform in 1..M), full capacity, and at 1080p full
+    capacity spread evenly over the frame, the kernel against its plain
+    version in turns, with the profiler's device time; and at 1080p the
+    H2D copy of one batch from pinned memory.  Keys "<label> <mode>",
+    mode "sparse", "full" or "spread"."""
     cfg = Config()
-    geom = GridGeometry.build(1920, 1080, cfg)
-    (b, n_batches), m = MV_TIMING_BATCH, cfg.mv_capacity
+    b, n_batches = MV_TIMING_BATCH
     bnd = mv_ops.threshold_bound(cfg.mv_threshold_sq)
     gen = torch.Generator(device="cuda").manual_seed(seed + 4)
     out = {}
-    for mode in ("sparse", "full"):
+    for label, (width, height), m, counts_mode, layout in MV_TIMING:
+        geom = GridGeometry.build(width, height, cfg)
+        mode = "spread" if layout == "spread" else counts_mode
+        key = f"{label} {mode}"
         batches = []
         for _ in range(n_batches):
-            if mode == "full":
-                counts = torch.full((b,), m, dtype=torch.int32,
-                                    device="cuda")
-            else:
+            if counts_mode == "sparse":
                 u = torch.rand((b,), generator=gen, device="cuda")
                 counts = torch.exp(u * math.log(m)).to(torch.int32)
-            batches.append((device_mvs(gen, counts, m, 1920, 1080), counts))
+            else:
+                counts = torch.full((b,), m, dtype=torch.int32,
+                                    device="cuda")
+            batches.append((device_mvs(gen, counts, m, width, height,
+                                       layout), counts))
         ref = [int(mv_ops.mv_cluster_counts_plain(
             f, c, geom, bnd, cfg.vectors_needed, cfg.block_shift).sum())
             for f, c in batches]
@@ -1335,21 +1514,33 @@ def phase_timing_mv(seed: int, card: str) -> dict:
         # bound, two shifts, four range tests) and 8 a centre cell (the
         # rule's 7 and the histogram's zeroing)
         mvs_read = sum(int(c.sum()) for _, c in batches) / n_batches
-        out[mode] = {"ms": k_ms, "plain_ms": p_ms, **least_time(
+        out[key] = {"ms": k_ms, "plain_ms": p_ms, **least_time(
             mvs_read * 8 + b * 9, mvs_read * 12 + b * centre_cells(geom) * 8)}
-        log(f"mv_cluster timing 1080p B={b} M={m} {mode} (mean "
+        log(f"mv_cluster timing {label} B={b} M={m} {mode} (mean "
             f"{mvs_read / b:.1f} MVs a frame, {mvs_read * 8 / 1e6:.1f} MB "
             f"of rows below the counts of "
             f"{b * m * 8 / 1e6:.1f} MB a launch; {n_batches} batches "
             f"rotated) on {card}: kernel {k_ms * 1e3:.3f} us/launch "
             f"({b / k_ms * 1e3:.0f} frames/s; runs {k_runs} ms), plain "
             f"{p_ms * 1e3:.3f} us/launch (runs {p_runs} ms), bound "
-            f"{out[mode]['bound_ms'] * 1e3:.3f} us by "
-            f"{out[mode]['bound_by']}")
-        if mode == "sparse":
-            log(f"mv_cluster kernel device time per launch (torch.profiler,"
-                f" sparse): "
-                f"{_profiled_kernel_us(kernel, batches, 'mv_cluster_kernel')}")
+            f"{out[key]['bound_ms'] * 1e3:.3f} us by "
+            f"{out[key]['bound_by']}")
+        log(f"mv_cluster kernel device time per launch (torch.profiler, "
+            f"{key}): "
+            f"{_profiled_kernel_us(kernel, batches, 'mv_cluster_kernel')}; "
+            f"host enqueue per call {_host_enqueue_us(kernel, batches):.3f}"
+            f" us")
+        if mode == "spread":
+            # the same count of MVs as "full", no cell collecting more
+            # than a few: what the same-address atomics of "full" cost
+            log(f"mv_cluster full capacity, boxed (a third of the MVs in "
+                f"48 cells) against spread evenly: "
+                f"{out[f'{label} full']['ms'] * 1e3:.3f} against "
+                f"{k_ms * 1e3:.3f} us/launch")
+        if mode == "spread" or label != "1080p":
+            del batches
+            torch.cuda.empty_cache()
+            continue
         # H2D of one batch from pinned memory
         pinned = batches[0][0].cpu().pin_memory()
         dst = torch.empty_like(batches[0][0])
@@ -1365,7 +1556,7 @@ def phase_timing_mv(seed: int, card: str) -> dict:
         h2d_ms = start.elapsed_time(stop) / 8
         if not torch.equal(dst, batches[0][0]):
             raise AssertionError("H2D copy of an MV batch differs")
-        out[mode]["h2d_ms"] = h2d_ms
+        out[key]["h2d_ms"] = h2d_ms
         mb = pinned.numel() * 2 / 1e6
         log(f"H2D of one {b}-frame int16 MV batch ({mb:.1f} MB) from "
             f"pinned memory on {card}: {h2d_ms * 1e3:.3f} us "
@@ -1401,9 +1592,30 @@ def _profiled_kernel_us(fn, batches, kernel_name: str) -> str:
     return "not measured (the trace holds no device time for the kernel)"
 
 
+def phase_timing(rng, seed: int, card: str) -> dict:
+    """Phase 5: each kernel at its timed shape; name -> times and bound."""
+    times = {"word_cluster_counts": phase_timing_words(rng, card),
+             "cluster_map_counts": phase_timing_map(seed, card),
+             "sad_block_grid": phase_timing_sad(seed,
+                                                card)[SAD_TIMING[0][0]],
+             "mv_cluster_counts": phase_timing_mv(seed,
+                                                  card)["1080p sparse"]}
+    for name, t in times.items():
+        log(f"{name}: {t['ms'] * 1e3:.3f} us a launch at its timed shape "
+            f"against a bound of {t['bound_ms'] * 1e3:.3f} us by "
+            f"{t['bound_by']} ({HBM_BYTES_PER_S / 1e12} TB/s, "
+            f"{OPS_PER_S / 1e12:.0f} T operations/s) on {card}")
+    return times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--times-only", action="store_true",
+                    help="build, then time the kernels (phase 5) and stop, "
+                         "printing their times as the last line; copied "
+                         "into the root of another checkout, times that "
+                         "checkout's kernels on the same card")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1413,6 +1625,11 @@ def main() -> int:
 
     card, have_native = phase_environment()
     phase_build()
+    if args.times_only:
+        times = phase_timing(rng, args.seed, card)
+        print(json.dumps({"times_us": {
+            name: round(t["ms"] * 1e3, 3) for name, t in times.items()}}))
+        return 0
     worst = {"word_cluster_counts": phase_correctness_words(rng),
              "cluster_map_counts": phase_correctness_map(rng),
              "sad_block_grid": phase_correctness_sad(rng),
@@ -1422,17 +1639,7 @@ def main() -> int:
     launches = phase_main_paths(args.seed, have_native)
     log(f"phase 4 done at {time.perf_counter() - t_start:.3f} s")
 
-    times = {"word_cluster_counts": phase_timing_words(rng, card),
-             "cluster_map_counts": phase_timing_map(args.seed, card),
-             "sad_block_grid": phase_timing_sad(args.seed,
-                                                card)[SAD_TIMING[0][0]],
-             "mv_cluster_counts": phase_timing_mv(args.seed,
-                                                  card)["sparse"]}
-    for name, t in times.items():
-        log(f"{name}: {t['ms'] * 1e3:.3f} us a launch at its timed shape "
-            f"against a bound of {t['bound_ms'] * 1e3:.3f} us by "
-            f"{t['bound_by']} ({HBM_BYTES_PER_S / 1e12} TB/s, "
-            f"{OPS_PER_S / 1e12:.0f} T operations/s) on {card}")
+    times = phase_timing(rng, args.seed, card)
     log(f"phase 5 done at {time.perf_counter() - t_start:.3f} s")
     loaded = [m for m in sys.modules
               if m in ("jax", "mvtrim_tpu") or m.startswith(("jax.",

@@ -14,10 +14,11 @@
 //   cl    = w & (left | right | up | down) & center
 //
 // center holds the bits with x in [1, gw-2] for rows y in [y_min, y_max),
-// computed here from gw, y_min and y_max; rows outside the window are never
-// read as centres.  counts[b] = sum of __popc(cl), motion[b] = counts[b] >=
+// computed from gw, y_min and y_max; rows outside the window are never read
+// as centres.  counts[b] = sum of __popc(cl), motion[b] = counts[b] >=
 // max(1, clusters_needed).  All bit arithmetic is uint32_t, so >> is a
-// logical shift (int32 >> is arithmetic).
+// logical shift (int32 >> is arithmetic).  The rule and the centre bits come
+// from cluster_words.cuh, which the vote-level kernels share.
 //
 // What bounds it: a frame is about 4 * used bytes read and 5 bytes written
 // (1,088 B read at 1080p, where used = 68 * 4), with ~10 integer operations
@@ -33,20 +34,12 @@
 
 #include <cuda_runtime.h>
 
+#include "cluster_words.cuh"
+
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
-constexpr unsigned kFullMask = 0xffffffffu;
-
-// Bits k of word c whose cell x = 32c + k lies in [1, gw - 2].
-__device__ __forceinline__ uint32_t center_bits(int c, int gw) {
-    const int x0 = 32 * c;
-    const int k_lo = max(0, 1 - x0);
-    const int k_hi = min(31, gw - 2 - x0);
-    if (k_hi < k_lo) return 0u;
-    const uint32_t upto_hi = k_hi == 31 ? kFullMask : ((1u << (k_hi + 1)) - 1u);
-    return upto_hi & (kFullMask << k_lo);
-}
+using mvt::kFullMask;
 
 __global__ void __launch_bounds__(32 * kWarpsPerBlock)
 word_cluster_kernel(const uint32_t* __restrict__ words, int batch, int gh,
@@ -68,9 +61,8 @@ word_cluster_kernel(const uint32_t* __restrict__ words, int batch, int gh,
         const uint32_t next = c + 1 < gww ? __ldg(f + j + 1) : 0u;
         const uint32_t up = y > 0 ? __ldg(f + j - gww) : 0u;
         const uint32_t down = y + 1 < gh ? __ldg(f + j + gww) : 0u;
-        const uint32_t left = (w << 1) | (prev >> 31);
-        const uint32_t right = (w >> 1) | (next << 31);
-        total += __popc(w & (left | right | up | down) & center_bits(c, gw));
+        total += __popc(mvt::cluster_bits(w, prev, next, up, down) &
+                        mvt::center_bits(c, gw));
     }
     for (int off = 16; off > 0; off >>= 1)
         total += __shfl_down_sync(kFullMask, total, off);

@@ -43,11 +43,14 @@ SIGNATURES = {
     # luma, batch, height, width, block, gh, gw, vec, grid, stream
     "mvt_sad_block_grid": [_P] + [_I] * 7 + [_P, _P],
     # mvs, mv_counts, batch, m, gh, gw, y_min, y_max, bound, thr, need,
-    # shift, scratch, scratch_blocks, counts, motion, stream
+    # shift, scratch, scratch_cells, counts, motion, stream
     "mvt_mv_cluster_counts": [_P, _P] + [_I] * 6 + [_L] + [_I] * 3
-                             + [_P, _I, _P, _P, _P],
-    "mvt_max_shared_per_block": [],
+                             + [_P, _L, _P, _P, _P],
+    # batch, gh, gw, y_min, y_max, force_global
+    "mvt_mv_cluster_scratch": [_I] * 6,
 }
+# entry points that return long long, not int
+RESTYPES = {"mvt_mv_cluster_scratch": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib = None
@@ -140,7 +143,7 @@ def load_library():
         lib = ctypes.CDLL(so_path)
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
             fn.argtypes = argtypes
         _lib = lib
         return lib

@@ -11,7 +11,10 @@ hand-written CUDA kernel and a plain PyTorch version of the same math:
   payload, and the second half of the SAD path.  A cell of a uint8 or
   int32 grid counts when it and one of its 4-neighbours reach a runtime
   threshold and it lies in the centre window; off-grid neighbours read as
-  vote 0, compared with the threshold like any other cell.
+  vote 0, compared with the threshold like any other cell.  The kernel
+  packs ``votes >= threshold`` into the word domain's words and runs the
+  word rule on them, off-grid rows reading as all ones at a threshold
+  <= 0 (``csrc/cluster_words.cuh``).
 
 The centre window is x in [1, gw-2], y in [y_min, y_max); a frame has
 motion when its count reaches max(1, CLUSTERS_NEEDED).  On a CUDA tensor

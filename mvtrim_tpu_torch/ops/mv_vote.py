@@ -109,29 +109,37 @@ def _check_mvs(mvs: torch.Tensor, counts: torch.Tensor) -> None:
                          "an MV)")
 
 
-@functools.lru_cache(maxsize=None)
-def shared_memory_limit(device_index: int) -> int:
-    """Bytes of shared memory one block of the card may opt in to."""
+@functools.lru_cache(maxsize=256)
+def _scratch_cells(batch: int, geom: GridGeometry, device_index: int,
+                   force_global: bool) -> int:
+    """int32 cells of global histogram scratch a launch needs, 0 where the
+    kernel keeps its histograms in shared memory (the kernel's own answer,
+    from its shared-memory layout and the card's opt-in limit)."""
     from ._build import load_library
 
     with torch.cuda.device(device_index):
-        limit = load_library().mvt_max_shared_per_block()
-    if limit < 0:
-        raise RuntimeError(f"shared-memory query failed: CUDA error {-limit}")
-    return limit
+        cells = load_library().mvt_mv_cluster_scratch(
+            batch, geom.gh, geom.gw, geom.y_min, geom.y_max,
+            int(force_global))
+    if cells < 0:
+        raise RuntimeError(f"scratch query failed: CUDA error {-cells}")
+    return cells
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
 
 
 def uses_global_histogram(geom: GridGeometry, device: torch.device) -> bool:
-    """True when a frame's int32 vote histogram (and the kernel's eight
-    warp sums) does not fit the shared memory of one block."""
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    return (geom.gh * geom.gw + 8) * 4 > shared_memory_limit(index)
+    """True when a frame's int32 vote histogram (with the kernel's words
+    and warp sums) does not fit the shared memory of one block."""
+    return _scratch_cells(1, geom, _device_index(device), False) > 0
 
 
 def _launch(mvs: torch.Tensor, counts: torch.Tensor, geom: GridGeometry,
             bound: int, thr: int, need: int, block_shift: int,
-            global_histogram: bool):
+            force_global: bool):
     from ._build import load_library
 
     lib = load_library()
@@ -139,19 +147,15 @@ def _launch(mvs: torch.Tensor, counts: torch.Tensor, geom: GridGeometry,
     dev = mvs.device
     out = torch.empty((b,), dtype=torch.int32, device=dev)
     motion = torch.empty((b,), dtype=torch.bool, device=dev)
-    scratch, blocks = None, 0
-    if global_histogram and b:
-        # one histogram per CTA, two CTAs per SM striding over the frames
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        blocks = min(b, 2 * sms)
-        scratch = torch.empty((blocks * geom.gh * geom.gw,),
-                              dtype=torch.int32, device=dev)
+    cells = _scratch_cells(b, geom, _device_index(dev), force_global)
+    scratch = torch.empty((cells,), dtype=torch.int32, device=dev) \
+        if cells else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mvt_mv_cluster_counts(
             mvs.data_ptr(), counts.data_ptr(), b, m, geom.gh, geom.gw,
             geom.y_min, geom.y_max, bound, thr, need, block_shift,
-            None if scratch is None else scratch.data_ptr(), blocks,
+            None if scratch is None else scratch.data_ptr(), cells,
             out.data_ptr(), motion.data_ptr(), ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(
@@ -162,16 +166,16 @@ def _launch(mvs: torch.Tensor, counts: torch.Tensor, geom: GridGeometry,
 def mv_cluster_op(mvs: torch.Tensor, counts: torch.Tensor,
                   geom: GridGeometry, bound: int, vectors_needed: int,
                   clusters_needed: int, block_shift: int, *,
-                  global_histogram: bool | None = None):
+                  global_histogram: bool = False):
     """mvs int16 [B, M, 4] + counts int32 [B] (non-negative) -> (counts
     int32 [B], motion bool [B]); ``bound`` and ``vectors_needed`` are
     runtime ints.
 
     A CUDA tensor goes to the CUDA kernel (``mv_cluster_op.launches``
     counts those launches), with its histograms in shared memory unless
-    ``global_histogram`` asks for the global-scratch variant (the default
-    takes it only where a grid does not fit); a CPU tensor goes to
-    ``mv_cluster_counts_plain``; any other device raises.
+    ``global_histogram`` asks for the global-scratch variant (without it,
+    the kernel takes that variant only where a grid does not fit); a CPU
+    tensor goes to ``mv_cluster_counts_plain``; any other device raises.
     """
     _check_mvs(mvs, counts)
     # the kernel compares in int32 (votes) and int64 (magnitudes)
@@ -179,10 +183,8 @@ def mv_cluster_op(mvs: torch.Tensor, counts: torch.Tensor,
     bound = max(-(1 << 63), min(int(bound), (1 << 63) - 1))
     need = max(1, clusters_needed)
     if mvs.device.type == "cuda":
-        if global_histogram is None:
-            global_histogram = uses_global_histogram(geom, mvs.device)
         out, motion = _launch(mvs, counts, geom, bound, thr, need,
-                              block_shift, global_histogram)
+                              block_shift, bool(global_histogram))
         with cluster_ops._launch_lock:
             mv_cluster_op.launches += 1
         return out, motion

@@ -218,7 +218,7 @@ class TestWrapper:
         assert set(_build.SIGNATURES) == {
             "mvt_word_cluster_counts", "mvt_cluster_map_counts",
             "mvt_sad_block_grid", "mvt_mv_cluster_counts",
-            "mvt_max_shared_per_block"}
+            "mvt_mv_cluster_scratch"}
         for src in _build.sources():
             with open(src) as f:
                 text = f.read()

@@ -204,3 +204,41 @@ def test_cuda_kernel_matches_plain(dims_vm):
             np.testing.assert_array_equal(
                 motion.cpu().numpy(), plain.numpy() >= max(
                     1, cfg.clusters_needed))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims_vm,b,dtype,offset", [
+    ((1920, 1080, 0.05), 64, torch.int32, 0),   # the SAD window
+    ((3840, 2160, 0.05), 64, torch.int32, 0),
+    ((1920, 1080, 0.05), 64, torch.int32, 4),   # base off 16-B alignment
+    ((200, 144, 0.05), 2048, torch.uint8, 0),   # 117 B a frame
+    ((1000, 562, 0.0), 777, torch.uint8, 0),    # 2,268 B a frame, gw 63
+    ((1920, 1080, 0.05), 777, torch.uint8, 1),  # base off 4-B alignment
+])
+def test_cuda_kernel_at_the_launch_shapes(dims_vm, b, dtype, offset):
+    """The SAD window's B = 64 int32 grids (one wide CTA a frame), and
+    frames whose rows take one-cell loads: not 16-byte multiples, gw not a
+    multiple of 4, or a base address off the wide loads' alignment."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m cuda "
+                    "tests/test_torch_grids.py)")
+    cfg, geom, v = case(dims_vm, b)
+    t = torch.from_numpy(v).to(dtype)
+    if dtype == torch.int32:
+        t = t * 1000 + torch.from_numpy(
+            np.random.default_rng(b).integers(0, 1000, size=v.shape,
+                                              dtype=np.int32))
+    dev = t.cuda()
+    if offset:
+        buf = torch.empty(dev.numel() * dev.element_size() + offset,
+                          dtype=torch.uint8, device="cuda")
+        dev = buf[offset:].view(dtype).view(dev.shape).copy_(dev)
+    for thr in (-1, 0, 1, 2, 255, 3072, 2 ** 31 - 1):
+        counts, motion = torch_cluster.cluster_map_op(dev, geom, thr,
+                                                      cfg.clusters_needed)
+        torch.cuda.synchronize()
+        plain = torch_cluster.cluster_map_counts_plain(t, geom, thr)
+        np.testing.assert_array_equal(counts.cpu().numpy(), plain.numpy())
+        np.testing.assert_array_equal(
+            motion.cpu().numpy(), plain.numpy() >= max(
+                1, cfg.clusters_needed))

@@ -77,6 +77,39 @@ def extreme_frame(m, width, height):
     return mvs, np.array([4 + 4 * len(cells)], np.int32)
 
 
+def hot_cell_mvs(counts, m, geom, cells):
+    """int16 [B, m, 4]: frame b's MVs in one cell (cells = 1), or
+    alternating between two neighbouring cells (cells = 2), near the
+    middle of the grid, each with |d|^2 = 25 or 50."""
+    b = len(counts)
+    mvs = np.zeros((b, m, 4), np.int16)
+    k = np.arange(m)
+    cx, cy = geom.gw // 2, (geom.y_min + geom.y_max) // 2
+    mvs[..., 0] = ((cx + k % cells) << SHIFT) + k % 16
+    mvs[..., 1] = (cy << SHIFT) + (k // 16) % 16
+    mvs[..., 2] = mvs[..., 0] - 5
+    mvs[..., 3] = mvs[..., 1] - 5 * (k % 2)
+    return mvs
+
+
+@pytest.mark.parametrize("cells", [1, 2])
+def test_hot_cells_match_xla(cells):
+    """The hot-cell frames of the cuda test, on the CPU: the port's plain
+    build equals the JAX XLA op (one lone cell never clusters; two
+    neighbouring cells do)."""
+    jg, tg = geoms(GEOMETRIES[0])
+    counts = np.array([300, 150, 1, 0, 17], np.int32)
+    mvs = hot_cell_mvs(counts, 300, tg, cells)
+    for vn in (0, 1, 2, 150):
+        xla = jax_mv.make_mv_cluster_op_xla(
+            jg, threshold_sq=16.0, block_shift=SHIFT, vectors_needed=vn,
+            clusters_needed=1)(*jax_fields(mvs), jnp.asarray(counts))
+        got = port(mvs, counts, tg, 16.0, vn)
+        assert_equal(got, xla)
+        if vn == 1:
+            assert got[0].tolist()[0] == (2 if cells == 2 else 0)
+
+
 def jax_fields(mvs):
     f = mvs.astype(np.int32)
     return tuple(jnp.asarray(f[..., i]) for i in range(4))
@@ -365,3 +398,24 @@ def test_cuda_kernel_int16_extremes(vn):
         16, vn, 1, SHIFT)
     assert_equal((got[0].cpu(), got[1].cpu()), port(mvs, counts, tg, 16.0,
                                                     vn))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cells", [1, 2])
+@pytest.mark.parametrize("dims,m", [((640, 480), 300), ((1920, 1080), 8192)])
+def test_cuda_kernel_hot_cells(dims, m, cells):
+    """Every MV of a frame in one cell, or in two neighbouring cells: all
+    of a warp's atomics on one or two addresses, and a lone cell's vote
+    at every threshold."""
+    _need_cuda()
+    geom = GridGeometry.build(*dims, Config())
+    counts = np.array([m, m // 2, 1, 0, 17], np.int32)
+    mvs = hot_cell_mvs(counts, m, geom, cells)
+    dev_mvs = torch.from_numpy(mvs).cuda()
+    dev_counts = torch.from_numpy(counts).cuda()
+    for vn in VECTORS_NEEDED + (m, m + 1):
+        got = torch_mv.mv_cluster_op(dev_mvs, dev_counts, geom, 16, vn, 1,
+                                     SHIFT)
+        torch.cuda.synchronize()
+        assert_equal((got[0].cpu(), got[1].cpu()),
+                     port(mvs, counts, geom, 16.0, vn))
