@@ -23,7 +23,14 @@ cap-sized sub-scans with the carry threaded, each on through merging,
 segmentation and the cut decision; and ``tools.tune``'s three routes, with
 and without ``--device-stats``, over a stand-in reader that serves the
 same data, against the same calls with the CPU build.  The launch counts
-are set to 0 just before each path and read just after it.
+are set to 0 just before each path and read just after it; the bits path
+must also make no host repack of its masks.
+
+Phase 5 times each kernel against its plain version and its bound: K1 at
+1080p B = 750 and 2048 and 4K B = 2048 at both row pitches (the bits as the
+scanner packs them, the words payload), where a K1 call's host time goes
+step by step, and the feeder's dispatch of one 750-frame chunk.
+``--times-only`` runs phases 1, 2 and 5.
 """
 
 from __future__ import annotations
@@ -89,6 +96,13 @@ GEOMETRIES = [  # (width, height, vertical_mask)
     (512, 2048, 0.0),     # one word per row, margin 0
 ]
 BATCHES = (4096, 1, 777)
+# K1: the listed batches and the main path's 750-frame chunk, at both
+# pitches, aligned and at a base 1 B (bits) or 4 B (words) off; and frames
+# larger than a block's shared memory, which take device-memory reads:
+# (width, height, vertical_mask, BLOCK_SHIFT, batches)
+WORD_BATCHES = BATCHES + (750,)
+WORD_OFFSETS = {"bits": 1, "words": 4}
+WORD_LARGE = (7680, 4320, 0.05, 2, (1, 70))   # 259,200 B a frame
 VECTORS_NEEDED = (0, 1, 2, 255)
 # K3 at the shapes the paths launch it at, and at frames whose rows take
 # one-cell loads: (width, height, vertical_mask, batch, dtype, byte offset
@@ -152,6 +166,11 @@ OPS_PER_S = 67e12
 # SAD window on its own: (label, geometry, batches rotated); the SAD window
 # and its (label, geometry, windows rotated) cells
 TIMING_BATCH = (2048, 32)
+# K1: (label, geometry, frames a launch) at the main path's 750-frame chunk
+# and the default device_batch; batches rotated to this many bytes
+K1_TIMING = (("1080p", (1920, 1080), 750), ("1080p", (1920, 1080), 2048),
+             ("4K", (3840, 2160), 2048))
+K1_ROTATED_BYTES = 96e6
 MAP_WINDOW_TIMING = (("1080p", (1920, 1080), 32), ("4K", (3840, 2160), 8))
 SAD_WINDOW = 64
 SAD_TIMING = (("1080p", (1920, 1080), 3), ("4K", (3840, 2160), 2))
@@ -270,36 +289,56 @@ def phase_build() -> None:
 
 # --- phase 3 ---
 
+def word_payloads(bits: torch.Tensor, geom: GridGeometry) -> dict:
+    """The bits on the card and their words payload: payload -> (op,
+    tensor)."""
+    return {"bits": (cluster_ops.cluster_bits_op, bits),
+            "words": (cluster_ops.cluster_words_op,
+                      cluster_ops.bits_to_words(bits, geom))}
+
+
 def phase_correctness_words(rng) -> int:
-    """K1 vs plain (CPU) vs oracle, exact.  Returns max |kernel-plain|."""
+    """K1 vs plain (on the card, same tensor) vs oracle, exact, at both
+    pitches, aligned and misaligned bases, frames in shared memory and
+    frames past it.  Returns max |kernel - plain|."""
     worst = 0
-    for width, height, vm in GEOMETRIES:
-        cfg = Config(vertical_mask=vm)
+    width, height, vm, shift, batches = WORD_LARGE
+    cases = [(w, h, Config(vertical_mask=v), WORD_BATCHES)
+             for w, h, v in GEOMETRIES]
+    cases.append((width, height, Config(vertical_mask=vm, block_shift=shift,
+                                        block_size=1 << shift), batches))
+    for width, height, cfg, batches in cases:
         geom = GridGeometry.build(width, height, cfg)
-        for b in BATCHES:
+        need = oracle.effective_clusters_needed(cfg.clusters_needed)
+        for b in batches:
             active, bits = random_masks(rng, b, geom)
-            words = cluster_ops.repack_bits_words(bits, geom)
-            counts, motion = cluster_ops.cluster_words_op(
-                torch.from_numpy(words).cuda(), geom, cfg.clusters_needed)
-            torch.cuda.synchronize()
-            counts = counts.cpu().numpy()
-            motion = motion.cpu().numpy()
-            plain = cluster_ops.word_cluster_counts_plain(
-                torch.from_numpy(words), geom).numpy()
             expect = oracle_counts(active.astype(np.uint8), geom)
-            need = oracle.effective_clusters_needed(cfg.clusters_needed)
-            worst = max(worst, int(np.abs(counts.astype(np.int64)
-                                          - plain).max()))
-            ok = (np.array_equal(counts, plain)
-                  and np.array_equal(counts, expect)
-                  and np.array_equal(motion, expect >= need))
-            log(f"word_cluster {width}x{height} vm={vm} B={b}: kernel == "
-                f"plain == oracle: {ok} (mean count {expect.mean():.1f}, "
-                f"motion {int(motion.sum())}/{b})")
-            if not ok:
-                raise AssertionError(
-                    f"word_cluster kernel disagrees at {width}x{height} "
-                    f"B={b}: {int((counts != expect).sum())} counts differ")
+            payloads = word_payloads(torch.from_numpy(bits).cuda(), geom)
+            plain = cluster_ops.word_cluster_counts_plain(
+                payloads["words"][1], geom)
+            if not np.array_equal(plain.cpu().numpy(), expect):
+                raise AssertionError(f"plain != oracle at {width}x{height}")
+            for name, (op, t) in payloads.items():
+                offset = WORD_OFFSETS[name]
+                for base, label in ((t, "aligned"),
+                                    (offset_copy(t, offset), "offset")):
+                    counts, motion = op(base, geom, cfg.clusters_needed)
+                    torch.cuda.synchronize()
+                    err = int((counts.to(torch.int64) - plain).abs().max())
+                    worst = max(worst, err)
+                    if err or not torch.equal(motion, plain >= need):
+                        raise AssertionError(
+                            f"word_cluster kernel disagrees at "
+                            f"{width}x{height} B={b} {name} {label}: "
+                            f"{int((counts != plain).sum())} counts differ")
+            log(f"word_cluster {width}x{height} vm={cfg.vertical_mask} "
+                f"BLOCK_SHIFT={cfg.block_shift} B={b}: kernel == "
+                f"plain == oracle at pitches {bits.shape[2]} B (bits) and "
+                f"{4 * cluster_ops.word_geometry(geom)[0]} B (words), "
+                f"aligned and offset bases (mean "
+                f"count {expect.mean():.1f}, motion "
+                f"{int((expect >= need).sum())}/{b}; "
+                f"{geom.gh * bits.shape[2]} B a bits frame)")
     return worst
 
 
@@ -665,8 +704,7 @@ def _scan_mv(detector: MVClusterDetector, payload: str, data, pts):
         if payload == "bits":
             resolve = detector.scan_bits_async(part)
         elif payload == "words":
-            resolve = detector.scan_words_async(
-                cluster_ops.repack_bits_words(part, detector.geom))
+            resolve = detector.scan_words_async(part)
         else:
             resolve = detector.scan_votes_async(part)
         pending.append((pts[lo:lo + chunk], resolve))
@@ -674,6 +712,29 @@ def _scan_mv(detector: MVClusterDetector, payload: str, data, pts):
     for p, resolve in pending:
         motion_ts.extend(p[resolve()].tolist())
     return motion_ts
+
+
+def counting_repacks(run):
+    """run() with every call of repack_bits_words counted: (its result,
+    the calls)."""
+    calls = []
+    real = cluster_ops.repack_bits_words
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    cluster_ops.repack_bits_words = counting
+    try:
+        return run(), len(calls)
+    finally:
+        cluster_ops.repack_bits_words = real
+
+
+def check_no_repack(calls: int) -> None:
+    log(f"bits path: repack_bits_words called {calls} times on its feeder")
+    if calls:
+        raise AssertionError("the bits path repacked its masks on the host")
 
 
 def mv_path(seed: int, payload: str):
@@ -686,6 +747,8 @@ def mv_path(seed: int, payload: str):
     else:
         active, pts = synthetic_masks(seed, geom)
         data = np.packbits(active, axis=2, bitorder="little")
+        if payload == "words":  # as native mvt_scan_words emits them
+            data = cluster_ops.repack_bits_words(data, geom)
     ref = MVClusterDetector(1920, 1080, Config(scan_backend="oracle"))
     ref_ts = _scan_mv(ref, payload, data, pts)
     ref_cut = _decide(ref_ts, cfg)
@@ -695,8 +758,11 @@ def mv_path(seed: int, payload: str):
         det = MVClusterDetector(1920, 1080, cfg)  # auto -> cuda
         assert det.backend == "cuda", det.backend
         t0 = time.perf_counter()
-        motion_ts = _scan_mv(det, payload, data, pts)
+        motion_ts, repacks = counting_repacks(
+            lambda: _scan_mv(det, payload, data, pts))
         scan_s = time.perf_counter() - t0
+        if payload == "bits":
+            check_no_repack(repacks)
         t0 = time.perf_counter()
         is_cut, segments = _decide(motion_ts, cfg)
         decide_s = time.perf_counter() - t0
@@ -1035,7 +1101,10 @@ def clip_path(clip: str, workdir: str, name: str, refs: dict):
     env, ref_name = CLIP_PATHS[name]
 
     def run() -> dict:
-        motion_ts, out_dur, rec = clip_run(clip, workdir, name, env)
+        (motion_ts, out_dur, rec), repacks = counting_repacks(
+            lambda: clip_run(clip, workdir, name, env))
+        if name == "bits":
+            check_no_repack(repacks)
         ref_ts, ref_dur, _ = refs[ref_name]
         if motion_ts != ref_ts or abs(out_dur - ref_dur) > 1e-3:
             raise AssertionError(f"{name}: differs from {ref_name}")
@@ -1199,14 +1268,20 @@ def centre_cells(geom: GridGeometry) -> int:
     return max(rows, 0) * max(geom.gw - 2, 0)
 
 
-def map_bytes(geom: GridGeometry, b: int, elem: int) -> int:
-    """Bytes K3's function must move for b frames: the rows its counts
-    depend on (the centre window and one row on each side, inside the
-    grid) read once, counts and motion written."""
+def rows_bytes(geom: GridGeometry, b: int, row_bytes: int) -> int:
+    """Bytes a cluster kernel's function must move for b frames of rows of
+    row_bytes: the rows its counts depend on (the centre window and one
+    row on each side, inside the grid) read once, counts and motion
+    written."""
     y_lo, y_hi = max(geom.y_min, 0), min(geom.y_max, geom.gh)
     rows = 0 if y_hi <= y_lo else \
         min(y_hi + 1, geom.gh) - max(y_lo - 1, 0)
-    return b * (rows * geom.gw * elem + 5)
+    return b * (rows * row_bytes + 5)
+
+
+def map_bytes(geom: GridGeometry, b: int, elem: int) -> int:
+    """rows_bytes of K3's votes, gw cells of elem bytes a row."""
+    return rows_bytes(geom, b, geom.gw * elem)
 
 
 def offset_copy(t: torch.Tensor, offset: int) -> torch.Tensor:
@@ -1217,57 +1292,186 @@ def offset_copy(t: torch.Tensor, offset: int) -> torch.Tensor:
     return buf[offset:].view(t.dtype).view(t.shape).copy_(t)
 
 
-def phase_timing_words(rng, card: str) -> dict:
+def word_bound(geom: GridGeometry, b: int, pitch: int) -> dict:
+    """K1's least time for b frames at a row pitch: the rows its counts
+    depend on read once, counts and motion written; about 16 integer
+    operations a word of those rows (the rule's shifts and ors, the
+    centre mask, a popcount, the sum)."""
+    gww = cluster_ops.word_geometry(geom)[0]
+    nbytes = rows_bytes(geom, b, pitch)
+    return {"nbytes": nbytes, **least_time(
+        nbytes, (nbytes - 5 * b) / pitch * gww * 16)}
+
+
+def phase_timing_words(rng, seed: int, card: str) -> dict:
+    """K1 at each K1_TIMING cell and payload (the bits at their own pitch,
+    the words payload at 4 * gww), on device-resident batches of random
+    bytes rotated past the L2: event time in turns with the plain version,
+    device time (torch.profiler), host enqueue a call; where a call's host
+    time goes; the feeder's dispatch of a chunk.  Returns the kernels
+    line's entry, 1080p B = 2048 bits, and the cells' numbers."""
     cfg = Config()
-    geom = GridGeometry.build(1920, 1080, cfg)
-    b, n_batches = TIMING_BATCH
-    batches, ref = [], []
-    for _ in range(n_batches):
-        _, bits = random_masks(rng, b, geom)
-        words = torch.from_numpy(cluster_ops.repack_bits_words(bits, geom))
-        ref.append(int(cluster_ops.word_cluster_counts_plain(
-            words, geom).sum()))
-        batches.append(words.cuda())
-    mbytes = sum(t.numel() * 4 for t in batches) / 1e6
+    need = cfg.clusters_needed
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    cells = {}
+    for label, (width, height), b in K1_TIMING:
+        geom = GridGeometry.build(width, height, cfg)
+        gwb = (geom.gw + 7) // 8
+        n = max(2, min(128, math.ceil(K1_ROTATED_BYTES
+                                      / (b * geom.gh * gwb))))
+        sets = [word_payloads(torch.randint(
+            0, 256, (b, geom.gh, gwb), dtype=torch.uint8, device="cuda",
+            generator=gen), geom) for _ in range(n)]
+        ref = [int(cluster_ops.word_cluster_counts_plain(
+            p["words"][1], geom).sum()) for p in sets]
+        for name, (op, _) in sets[0].items():
+            batches = [p[name][1] for p in sets]
+            pitch = gwb if name == "bits" else 4 * ((geom.gw + 31) // 32)
 
-    def kernel(w):
-        return cluster_ops.cluster_words_op(w, geom, cfg.clusters_needed)[0]
+            def kernel(t, op=op, geom=geom):
+                return op(t, geom, need)[0]
 
-    def plain(w):
-        return cluster_ops.word_cluster_counts_plain(w, geom)
+            def plain(t, name=name, geom=geom):
+                if name == "bits":
+                    return cluster_ops.bits_cluster_counts_plain(t, geom)
+                return cluster_ops.word_cluster_counts_plain(t, geom)
 
-    t = _turns({"plain": plain, "kernel": kernel}, batches, ref,
-               {"plain": 64, "kernel": 512})
-    (k_ms, k_runs), (p_ms, p_runs) = t["kernel"], t["plain"]
-    log(f"word_cluster timing 1080p B={b} over {n_batches} batches "
-        f"({mbytes:.1f} MB) on {card}: kernel {k_ms * 1e3:.3f} us/batch "
-        f"({b / k_ms * 1e3:.0f} frames/s; runs {k_runs} ms), "
-        f"plain {p_ms * 1e3:.3f} us/batch ({b / p_ms * 1e3:.0f} frames/s; "
-        f"runs {p_runs} ms)")
+            t = _turns({"plain": plain, "kernel": kernel}, batches, ref,
+                       {"plain": 16, "kernel": 256})
+            (k_ms, k_runs), (p_ms, p_runs) = t["kernel"], t["plain"]
+            dev_us, dev_text = _device_time(kernel, batches,
+                                            "word_cluster_kernel")
+            # one batch over and over, as the pipeline's kernel finds its
+            # batch in the L2 right after the H2D copy; and a stream
+            # control, a copy of the same batches (PyTorch's clone)
+            warm_us, warm_text = _device_time(kernel, batches[:1],
+                                              "word_cluster_kernel")
+            copy_text = _device_time(lambda t: t.clone(), batches,
+                                     "Memcpy DtoD")[1]
+            host_us = _host_enqueue_us(kernel, batches)
+            bound = word_bound(geom, b, pitch)
+            key = f"{label} B={b} {name}"
+            cells[key] = {"ms": k_ms, "plain_ms": p_ms, "device_us": dev_us,
+                          "warm_us": warm_us, "host_us": host_us, **bound}
+            log(f"word_cluster {key} (pitch {pitch} B, {n} batches "
+                f"rotated, {bound['nbytes'] / 1e6:.3f} MB the function "
+                f"moves) on {card}: device time {dev_text}; one batch "
+                f"(L2-warm): {warm_text}; clone of the same batches: "
+                f"{copy_text}; event "
+                f"{k_ms * 1e3:.3f} us/launch (runs {k_runs} ms); host "
+                f"enqueue {host_us:.3f} us a call; plain "
+                f"{p_ms * 1e3:.3f} us (runs {p_runs} ms); bound "
+                f"{bound['bound_ms'] * 1e3:.3f} us by {bound['bound_by']}")
+        del sets
+        torch.cuda.empty_cache()
+    launch_steps(seed, card)
+    cells["feeder"] = feeder_dispatch(rng, card)
+    return {**cells["1080p B=2048 bits"], "cells": cells}
 
-    # where a launch's time goes: host enqueue vs the kernel on the card
-    log(f"host enqueue per kernel call (wrapper + launch): "
-        f"{_host_enqueue_us(kernel, batches):.3f} us")
-    log(f"kernel device time per launch (torch.profiler): "
-        f"{_profiled_kernel_us(kernel, batches, 'word_cluster_kernel')}")
 
-    # a batch far past the L2 cache: the kernel's own bandwidth
-    big = torch.cat(batches)
-    halves = [big[: len(big) // 2], big[len(big) // 2:]]
-    reps = [_time(kernel, halves, 64)[0] for _ in range(3)]
-    big_ms = sorted(reps)[1]
-    nbytes = halves[0].numel() * 4 + len(halves[0]) * 5
-    log(f"word_cluster kernel 1080p B={len(halves[0])} "
-        f"({nbytes / 1e6:.1f} MB/launch): median of "
-        f"{[round(r * 1e3, 3) for r in reps]} = {big_ms * 1e3:.3f} "
-        f"us/launch, {nbytes / big_ms / 1e9:.3f} TB/s of 3.35 TB/s peak, "
-        f"{len(halves[0]) / big_ms * 1e3:.0f} frames/s")
-    # a 2048-frame launch reads its words once and writes counts and
-    # motion; about 16 integer operations a word (four neighbour words,
-    # shifts, ors, the centre mask, a popcount)
-    words = b * cluster_ops.word_geometry(geom)[1]
-    return {"ms": k_ms, "plain_ms": p_ms,
-            **least_time(words * 4 + b * 5, words * 16)}
+def launch_steps(seed: int, card: str) -> None:
+    """Where a K1 call's host time goes at the main path's dispatch (1080p,
+    B = 750 bits): host-clock us a call over 256 calls of each step on its
+    own, twice in turns.  The steps of a call before this design (the
+    library's lock, the device context, two output allocations, the
+    stream object), this design's (one allocation and its views, the raw
+    stream, the C entry point through ctypes), and the whole op call."""
+    geom = GridGeometry.build(1920, 1080, Config())
+    b = 750
+    gwb = (geom.gw + 7) // 8
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    bits = torch.randint(0, 256, (b, geom.gh, gwb), dtype=torch.uint8,
+                         device="cuda", generator=gen)
+    payloads = word_payloads(bits, geom)
+    dev = bits.device
+    index = dev.index
+
+    def device_context():
+        with torch.cuda.device(dev):
+            pass
+
+    steps = {
+        "load_library() and its lock": _build.load_library,
+        "torch.cuda.device context": device_context,
+        "two torch.empty (counts, motion)": lambda: (
+            torch.empty((b,), dtype=torch.int32, device=dev),
+            torch.empty((b,), dtype=torch.bool, device=dev)),
+        "two new_empty (counts, motion; outputs)": lambda: (
+            bits.new_empty((b,), dtype=torch.int32),
+            bits.new_empty((b,), dtype=torch.bool)),
+        "current_stream(device).cuda_stream":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "word_geometry(geom)": lambda: cluster_ops.word_geometry(geom),
+        "raw current stream":
+            lambda: torch._C._cuda_getCurrentRawStream(index),
+    }
+    def one_buffer():
+        out = torch.empty((5 * b,), dtype=torch.uint8, device=dev)
+        counts, motion = out.split((4 * b, b))
+        return counts.view(torch.int32), motion.view(torch.bool)
+
+    steps["one allocation, counts and motion views of it"] = one_buffer
+    counts, motion = cluster_ops.outputs(bits, b)
+    entry = _build.load_library().mvt_word_cluster_counts
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    steps["the C entry point through ctypes (launches)"] = \
+        lambda: entry(bits.data_ptr(), b, geom.gh, gwb, geom.gw, geom.y_min,
+                      geom.y_max, 2, counts.data_ptr(), motion.data_ptr(),
+                      index, stream)
+    for name, (op, t) in payloads.items():
+        steps[f"the whole {op.__name__} call ({name})"] = \
+            lambda op=op, t=t: op(t, geom, 2)
+    runs: dict[str, list[float]] = {}
+    for name in list(steps) + list(steps)[::-1]:
+        runs.setdefault(name, []).append(
+            _host_enqueue_us(lambda _, f=steps[name]: f(), [None]))
+    for name, us in runs.items():
+        log(f"K1 call step, 1080p B={b}, on {card}: {name}: "
+            f"{[round(u, 3) for u in us]} us a call")
+
+
+def feeder_dispatch(rng, card: str) -> dict:
+    """The feeder's dispatch of one 30 s, 750-frame 1080p chunk: host-clock
+    us from the call of scan_bits_async (scan_words_async) to its return
+    (pinned staging, the H2D copy and the launch enqueued), 16 chunks a
+    turn in the turns
+    bits, words, words, bits after three, each resolved after its clock
+    stops; and the repack alone on this host."""
+    cfg = Config()
+    det = MVClusterDetector(1920, 1080, cfg)
+    chunk = int(cfg.chunk_duration_sec * FPS)
+    _, bits = random_masks(rng, chunk, det.geom)
+    words = cluster_ops.repack_bits_words(bits, det.geom)
+    scans = {"bits": (det.scan_bits_async, bits),
+             "words": (det.scan_words_async, words)}
+    for scan, data in scans.values():
+        for _ in range(3):
+            scan(data)()
+    runs: dict[str, list[float]] = {}
+    for name in ("bits", "words", "words", "bits"):
+        scan, data = scans[name]
+        for _ in range(16):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resolve = scan(data)
+            runs.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e6)
+            resolve()
+    t0 = time.perf_counter()
+    for _ in range(32):
+        cluster_ops.repack_bits_words(bits, det.geom)
+    repack_us = (time.perf_counter() - t0) / 32 * 1e6
+    out = {}
+    for name, us in runs.items():
+        out[name] = sum(us) / len(us)
+        log(f"feeder dispatch of one {chunk}-frame 1080p {name} chunk on "
+            f"{card} (host clock, to the return of scan_{name}_async): mean "
+            f"{out[name]:.3f} us, min {min(us):.3f}, max {max(us):.3f} over "
+            f"{len(us)}")
+    log(f"repack_bits_words of that chunk alone on this host: "
+        f"{repack_us:.3f} us")
+    out["repack_us"] = repack_us
+    return out
 
 
 def phase_timing_map(seed: int, card: str) -> dict:
@@ -1300,7 +1504,7 @@ def phase_timing_map(seed: int, card: str) -> dict:
         f"{b / k_ms * 1e3:.0f} frames/s; runs {k_runs} ms), plain "
         f"{p_ms * 1e3:.3f} us/launch (runs {p_runs} ms)")
     log(f"cluster_map kernel device time per launch (torch.profiler): "
-        f"{_profiled_kernel_us(kernel, batches, 'cluster_map_kernel')}; "
+        f"{_device_time(kernel, batches, 'cluster_map_kernel')[1]}; "
         f"host enqueue per call {_host_enqueue_us(kernel, batches):.3f} us")
     _time_map_offset(kernel, batches, 1, f"1080p B={b} uint8", card)
     # the uint8 rows the counts depend on read once, counts and motion
@@ -1350,7 +1554,7 @@ def _time_map_window(seed: int, card: str, label: str, width: int,
         f"{bnd['bound_ms'] * 1e3:.3f} us by {bnd['bound_by']}")
     log(f"cluster_map kernel device time per launch, {label} B={b} int32 "
         f"(torch.profiler): "
-        f"{_profiled_kernel_us(kernel, batches, 'cluster_map_kernel')}; "
+        f"{_device_time(kernel, batches, 'cluster_map_kernel')[1]}; "
         f"host enqueue per call {_host_enqueue_us(kernel, batches):.3f} us")
     if label == "1080p":
         _time_map_offset(kernel, batches, 4, f"{label} B={b} int32", card)
@@ -1367,7 +1571,7 @@ def _time_map_offset(kernel, batches, offset: int, label: str,
     t = _turns({"aligned": lambda i: kernel(batches[i]),
                 "offset": lambda i: kernel(moved[i])}, idx, ref,
                {"aligned": 256, "offset": 256})
-    dev = {name: _profiled_kernel_us(fn, src, "cluster_map_kernel")
+    dev = {name: _device_time(fn, src, "cluster_map_kernel")[1]
            for name, fn, src in (("aligned", kernel, batches),
                                  ("offset", kernel, moved))}
     log(f"cluster_map {label} on {card}, aligned base against {offset} B "
@@ -1444,6 +1648,10 @@ def phase_timing_sad(seed: int, card: str) -> dict:
             f"cluster_map) {op_ms * 1e3:.3f} us/window (runs {op_runs} ms); "
             f"H2D from pinned memory {h2d_ms * 1e3:.3f} us/window "
             f"({nbytes / h2d_ms / 1e6:.3f} GB/s)")
+        host_us = _host_enqueue_us(
+            lambda w, g=geom: sad_ops.sad_grid_op(w, g, bs), wins)
+        log(f"sad_block {label} host enqueue per sad_grid_op call: "
+            f"{host_us:.3f} us")
         # the window read once (the carry plane too), the int32 grid
         # written; two integer operations a pixel (|difference|, sum)
         out[label] = {"ms": k_ms, "plain_ms": p_ms, "op_ms": op_ms,
@@ -1527,7 +1735,7 @@ def phase_timing_mv(seed: int, card: str) -> dict:
             f"{out[key]['bound_by']}")
         log(f"mv_cluster kernel device time per launch (torch.profiler, "
             f"{key}): "
-            f"{_profiled_kernel_us(kernel, batches, 'mv_cluster_kernel')}; "
+            f"{_device_time(kernel, batches, 'mv_cluster_kernel')[1]}; "
             f"host enqueue per call {_host_enqueue_us(kernel, batches):.3f}"
             f" us")
         if mode == "spread":
@@ -1566,8 +1774,9 @@ def phase_timing_mv(seed: int, card: str) -> dict:
     return out
 
 
-def _profiled_kernel_us(fn, batches, kernel_name: str) -> str:
-    """Mean device time of a kernel over 64 calls, and the card's busy
+def _device_time(fn, batches, kernel_name: str):
+    """Mean device us a launch of a kernel over 64 calls (None where the
+    trace holds no device time for it), and a line with the card's busy
     share across those calls (host clock, profiler running), from a
     torch.profiler trace."""
     from torch.profiler import ProfilerActivity, profile
@@ -1586,15 +1795,16 @@ def _profiled_kernel_us(fn, batches, kernel_name: str) -> str:
                              getattr(ev, "cuda_time_total", 0.0))
             if dev_us <= 0:
                 break
-            return (f"{dev_us / ev.count:.3f} us over {ev.count} launches; "
-                    f"card busy {dev_us / window_us * 100:.2f}% of the "
-                    f"{window_us:.0f} us host window")
-    return "not measured (the trace holds no device time for the kernel)"
+            return dev_us / ev.count, (
+                f"{dev_us / ev.count:.3f} us over {ev.count} launches; "
+                f"card busy {dev_us / window_us * 100:.2f}% of the "
+                f"{window_us:.0f} us host window")
+    return None, "not measured (the trace holds no device time for the kernel)"
 
 
 def phase_timing(rng, seed: int, card: str) -> dict:
     """Phase 5: each kernel at its timed shape; name -> times and bound."""
-    times = {"word_cluster_counts": phase_timing_words(rng, card),
+    times = {"word_cluster_counts": phase_timing_words(rng, seed, card),
              "cluster_map_counts": phase_timing_map(seed, card),
              "sad_block_grid": phase_timing_sad(seed,
                                                 card)[SAD_TIMING[0][0]],
@@ -1627,8 +1837,13 @@ def main() -> int:
     phase_build()
     if args.times_only:
         times = phase_timing(rng, args.seed, card)
-        print(json.dumps({"times_us": {
-            name: round(t["ms"] * 1e3, 3) for name, t in times.items()}}))
+        cells = times["word_cluster_counts"]["cells"]
+        print(json.dumps({
+            "times_us": {name: round(t["ms"] * 1e3, 3)
+                         for name, t in times.items()},
+            "word_cluster": {key: {k: v for k, v in c.items()
+                                   if k not in ("bound_by",)}
+                             for key, c in cells.items()}}))
         return 0
     worst = {"word_cluster_counts": phase_correctness_words(rng),
              "cluster_map_counts": phase_correctness_map(rng),

@@ -38,6 +38,7 @@
 #include <cuda_runtime.h>
 
 #include "cluster_words.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -142,13 +143,11 @@ int warps_for(int batch, int sms) {
 
 template <typename T>
 int launch_vec(const void* votes, int batch, int gh, int gw, int y_min,
-               int y_max, int thr, int need, void* counts, void* motion,
-               cudaStream_t stream) {
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                     dev);
+               int y_max, int thr, int need, int device, void* counts,
+               void* motion, cudaStream_t stream) {
+    int sms = 0;
+    const cudaError_t err =
+        mvt::device_attribute<cudaDevAttrMultiProcessorCount>(device, &sms);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int warps = warps_for(batch, sms);
     // four cells a lane where every row starts on a four-cell boundary
@@ -162,19 +161,21 @@ int launch_vec(const void* votes, int batch, int gh, int gw, int y_min,
 
 }  // namespace
 
-// Launches on `stream` and returns the CUDA error (0 = launched).
-// is_int32 selects int32 votes, else uint8.  need = max(1,
-// clusters_needed), applied by the caller.
+// Launches on `stream` of `device` (made current only where it is not) and
+// returns the CUDA error (0 = launched).  is_int32 selects int32 votes, else
+// uint8.  need = max(1, clusters_needed), applied by the caller.
 extern "C" int mvt_cluster_map_counts(const void* votes, int is_int32,
                                       int batch, int gh, int gw, int y_min,
                                       int y_max, int thr, int need,
-                                      void* counts, void* motion,
+                                      void* counts, void* motion, int device,
                                       void* stream) {
+    const mvt::DeviceGuard guard(device);
+    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
     if (batch <= 0) return static_cast<int>(cudaGetLastError());
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (is_int32)
         return launch_vec<int32_t>(votes, batch, gh, gw, y_min, y_max, thr,
-                                   need, counts, motion, s);
+                                   need, device, counts, motion, s);
     return launch_vec<uint8_t>(votes, batch, gh, gw, y_min, y_max, thr, need,
-                               counts, motion, s);
+                               device, counts, motion, s);
 }

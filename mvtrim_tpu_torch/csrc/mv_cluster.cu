@@ -53,6 +53,7 @@
 #include <cuda_runtime.h>
 
 #include "cluster_words.cuh"
+#include "launch.cuh"
 
 namespace {
 
@@ -189,7 +190,8 @@ extern "C" long long mvt_mv_cluster_scratch(int batch, int gh, int gw,
     return static_cast<long long>(min(batch, 2 * sms)) * rows * gw;
 }
 
-// Launches on `stream` and returns the CUDA error (0 = launched).  With
+// Launches on `stream` of `device` (made current only where it is not) and
+// returns the CUDA error (0 = launched).  With
 // scratch == NULL the histograms live in shared memory, one block per frame;
 // else scratch holds scratch_cells int32 (mvt_mv_cluster_scratch), one
 // histogram per block, and the blocks stride over the frames.  bound is the
@@ -201,8 +203,10 @@ extern "C" int mvt_mv_cluster_counts(const void* mvs, const void* mv_counts,
                                      int y_min, int y_max, long long bound,
                                      int thr, int need, int shift,
                                      void* scratch, long long scratch_cells,
-                                     void* counts, void* motion,
+                                     void* counts, void* motion, int device,
                                      void* stream) {
+    const mvt::DeviceGuard guard(device);
+    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
     if (batch <= 0) return static_cast<int>(cudaGetLastError());
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int rows = window_rows(gh, y_min, y_max);

@@ -35,6 +35,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch.cuh"
+
 namespace {
 
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -128,19 +130,23 @@ void launch(const void* luma, int batch, int height, int width, int block,
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 = launched), or
-// cudaErrorInvalidValue for arguments the kernel does not take.  vec is the
-// bytes per load (16, 4 or 1), chosen by the caller so that it divides the
-// width and the block size and the base address is vec-aligned; block / vec
-// must be a power of two no larger than 32.
+// Launches on `stream` of `device` (made current only where it is not) and
+// returns cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for
+// arguments the kernel does not take.  vec is the bytes per load (16, 4 or
+// 1), chosen by the caller so that it divides the width and the block size
+// and the base address is vec-aligned; block / vec must be a power of two no
+// larger than 32.
 extern "C" int mvt_sad_block_grid(const void* luma, int batch, int height,
                                   int width, int block, int gh, int gw,
-                                  int vec, void* grid, void* stream) {
+                                  int vec, void* grid, int device,
+                                  void* stream) {
     const int tpb = vec > 0 ? block / vec : 0;
     if ((vec != 1 && vec != 4 && vec != 16) || block % vec != 0 ||
         tpb < 1 || tpb > 32 || (tpb & (tpb - 1)) != 0 || width % vec != 0 ||
         gh > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
+    const mvt::DeviceGuard guard(device);
+    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
     if (batch > 0 && gh > 0) {
         cudaStream_t s = static_cast<cudaStream_t>(stream);
         if (vec == 16)

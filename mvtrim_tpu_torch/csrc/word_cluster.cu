@@ -1,92 +1,329 @@
-// Word-domain cluster count for Hopper (sm_90a).
+// Word-domain cluster count for Hopper (sm_90a): the kernel of the bits and
+// words payloads, the default scan path.
 //
 // Replaces the TPU kernel mvtrim_tpu/ops/cluster.py:word_cluster_counts_T
-// (make_cluster_words_op_pallas_T), which is also the math of the lane-major
-// word_cluster_counts (make_cluster_words_op_pallas).
+// (make_cluster_words_op_pallas_T, K1), and with it the lane-major
+// word_cluster_counts (make_cluster_words_op_pallas, K2): the same math on
+// another layout.
 //
-// Input: words int32 [B, used], contiguous, used = gh * gww, gww =
-// ceil(gw / 32).  Bit k of word c in row y is grid cell x = 32c + k (the
-// layout repack_bits_words and the native mvt_scan_words emit).  Per word:
+// Input: uint8 rows [B, gh, pitch], contiguous.  pitch = ceil(gw / 8) for the
+// bits payload (native mvt_scan_bits), 4 * gww for the words payload (native
+// mvt_scan_words, int32 [B, gh * gww] read as bytes), gww = ceil(gw / 32).
+// Word c of row y is bytes 4c..4c+3 of the row, little-endian, a byte at or
+// past the pitch reading 0: bit k of word c is cell x = 32c + k, which is
+// what the TPU kernel computes on repack_bits_words(bits).  The rule and the
+// centre bits are cluster_words.cuh's (cluster_bits, center_bits); counts[b]
+// is the popcount sum over the centre rows [y_min, y_max), motion[b] =
+// counts[b] >= need.  Bits past gw in a row's last byte never reach a centre
+// cell: a centre cell's 4-neighbours lie at x <= gw - 1.
 //
-//   left  = (w << 1) | (word c-1 of the row >> 31)     0 past the row edge
-//   right = (w >> 1) | (word c+1 of the row << 31)     0 past the row edge
-//   up    = word at row y-1, down = word at row y+1    0 outside [0, gh)
-//   cl    = w & (left | right | up | down) & center
+// What bounds it on the H100: the bytes, and at the pipeline's batches the
+// fixed cost of a launch.  A frame moves the rows its counts depend on (the
+// centre rows and one more on each side, inside the grid) and writes 5
+// bytes: 965 B at 1080p in bits, 0.59 us for B = 2048 at 3.35 TB/s, against
+// ~25 integer operations a word of 32 cells.  The first design (one warp a
+// frame, each lane loading a word and its four neighbours from device
+// memory in a loop, with a division a word) kept about 260 KB in flight
+// across the card, where HBM's latency needs about 2 MB: 5.8-6.1 us.
 //
-// center holds the bits with x in [1, gw-2] for rows y in [y_min, y_max),
-// computed from gw, y_min and y_max; rows outside the window are never read
-// as centres.  counts[b] = sum of __popc(cl), motion[b] = counts[b] >=
-// max(1, clusters_needed).  All bit arithmetic is uint32_t, so >> is a
-// logical shift (int32 >> is arithmetic).  The rule and the centre bits come
-// from cluster_words.cuh, which the vote-level kernels share.
+// Design: a CTA takes F consecutive frames, one warp a frame, F picked by the
+// C entry point from B and the SM count so that the batch runs in one wave of
+// about four CTAs an SM (F = 4 at B = 2048, 2 at B = 750 on 132 SMs).  The F
+// frames are one contiguous span, and one thread brings it into shared
+// memory with TMA's 1-D bulk copy (cp.async.bulk, completing on an
+// mbarrier), so all of the CTA's bytes are in flight at once and the copy
+// costs no registers.  The copy takes the span's 16-byte-aligned middle;
+// plain loads take the unaligned head and tail, and no byte past the span is
+// read (a bits frame is 1,020 B at 1080p, and the base may sit anywhere).
+// The rule then runs from shared memory: lane l takes word column c = l %
+// gww of a band of rows, walking down it with the rows above and below in
+// registers, so each row costs one word read (two aligned 32-bit reads and a
+// __funnelshift_r at an unaligned pitch, one where pitch and base are 4-byte
+// aligned) and two byte reads for the neighbouring words' edge bits; only
+// rows [y_min, y_max) are walked, no division a word, and a warp-shuffle sum
+// gives the frame's count.  Measured on the H100 (PERF.md): 3.2 us at
+// 1080p B = 750, 4.1 us at B = 2048 and 7.5 us at 4K in bits, 1.3-1.9
+// times a PyTorch copy of the same bytes; cutting the copy into a piece a
+// frame with a barrier each, one CTA an SM, and two to eight warps a frame
+// were each slower.
 //
-// What bounds it: a frame is about 4 * used bytes read and 5 bytes written
-// (1,088 B read at 1080p, where used = 68 * 4), with ~10 integer operations
-// per word.  That is far below the card's compute and bandwidth at any batch
-// the pipeline sends, so the kernel is bound by launch overhead and memory
-// bandwidth, and the end-to-end time is set by host decode.  Design: one warp
-// per frame, lanes striding over the frame's words so that neighbouring lanes
-// read neighbouring words; the four neighbour words come through the
-// read-only cache (__ldg), and a __shfl_down_sync tree sums the warp.  No
-// shared memory, no allocation, no synchronisation beyond the warp.
+// For a frame larger than one block's shared memory (8K at BLOCK_SHIFT 2:
+// 259,200 B), the C entry point picks a variant in which each warp reads
+// its frame from device memory a byte at a time.
 
+#include <algorithm>
+#include <atomic>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "cluster_words.cuh"
+#include "launch.cuh"
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
 using mvt::kFullMask;
 
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-word_cluster_kernel(const uint32_t* __restrict__ words, int batch, int gh,
-                    int gww, int gw, int y_min, int y_max, int need,
-                    int32_t* __restrict__ counts,
-                    uint8_t* __restrict__ motion) {
-    const int lane = threadIdx.x & 31;
-    const int frame = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-    if (frame >= batch) return;  // whole warp leaves together
+constexpr int kMaxFrames = 32;     // frames (warps) a CTA
+constexpr int kBarrierBytes = 16;  // the mbarrier, padded to 16 bytes
 
-    const uint32_t* f = words + static_cast<size_t>(frame) * gh * gww;
-    const int j_end = min(y_max, gh) * gww;
+// Shared-memory bytes for F frames of frame_bytes: the barrier, up to 15
+// bytes before the span's first byte (it keeps its address mod 16), the span
+// and one word that the last unaligned read may touch past it.
+long long shared_bytes(int frames, long long frame_bytes) {
+    return kBarrierBytes + 16 + frames * frame_bytes + 16;
+}
+
+// A CTA's span in shared memory: byte o of the span lies at bytes[head + o],
+// bytes 16-byte aligned.
+template <bool kAligned>
+struct SharedSpan {
+    const uint32_t* words;  // bytes, as 32-bit words
+    const uint8_t* bytes;
+    int head;
+
+    // bytes o..o+3 of the span, little-endian
+    __device__ __forceinline__ uint32_t word(int o, int) const {
+        o += head;
+        if (kAligned) return words[o >> 2];
+        return __funnelshift_r(words[o >> 2], words[(o >> 2) + 1],
+                               8 * (o & 3));
+    }
+    __device__ __forceinline__ uint32_t byte(int o) const {
+        return bytes[head + o];
+    }
+};
+
+// One frame in device memory, read a byte at a time; `avail` bytes of the
+// row are left from o, so nothing past the row is read.
+struct GlobalFrame {
+    const uint8_t* bytes;
+
+    __device__ __forceinline__ uint32_t word(int o, int avail) const {
+        uint32_t w = 0;
+        for (int i = 0; i < 4 && i < avail; ++i)
+            w |= static_cast<uint32_t>(__ldg(bytes + o + i)) << (8 * i);
+        return w;
+    }
+    __device__ __forceinline__ uint32_t byte(int o) const {
+        return __ldg(bytes + o);
+    }
+};
+
+// The warp's count of cluster cells over rows [y_lo, y_hi) of the frame whose
+// row y starts at byte base + y * pitch of src (summed in lane 0).  Lane l
+// walks word column l % gww down band l / gww of the rows, 32 / gww bands a
+// warp; rows of more than 32 words take columns l, l + 32, ... and one band.
+template <class Src>
+__device__ __forceinline__ uint32_t count_frame(const Src& src, int base,
+                                                int gh, int pitch, int gw,
+                                                int gww, int y_lo, int y_hi) {
+    const int lane = threadIdx.x & 31;
+    const int bands = gww <= 32 ? 32 / gww : 1;
+    const int band = gww <= 32 ? lane / gww : 0;
+    const int len = (y_hi - y_lo + bands - 1) / bands;
+    const int y0 = y_lo + band * len;
+    const int y1 = min(y0 + len, y_hi);
     uint32_t total = 0;
-    for (int j = max(y_min, 0) * gww + lane; j < j_end; j += 32) {
-        const int y = j / gww;
-        const int c = j - y * gww;
-        const uint32_t w = __ldg(f + j);
-        const uint32_t prev = c > 0 ? __ldg(f + j - 1) : 0u;
-        const uint32_t next = c + 1 < gww ? __ldg(f + j + 1) : 0u;
-        const uint32_t up = y > 0 ? __ldg(f + j - gww) : 0u;
-        const uint32_t down = y + 1 < gh ? __ldg(f + j + gww) : 0u;
-        total += __popc(mvt::cluster_bits(w, prev, next, up, down) &
-                        mvt::center_bits(c, gw));
+    if (band < bands && y0 < y1) {
+        for (int c = gww <= 32 ? lane % gww : lane; c < gww; c += 32) {
+            const int avail = pitch - 4 * c;  // >= 1: 4 (gww - 1) < pitch
+            const uint32_t keep =
+                avail >= 4 ? kFullMask : (1u << (8 * avail)) - 1u;
+            const uint32_t center = mvt::center_bits(c, gw);
+            int o = base + y0 * pitch + 4 * c;
+            uint32_t up = y0 > 0 ? src.word(o - pitch, avail) : 0u;
+            uint32_t w = src.word(o, avail) & keep;
+            for (int y = y0; y < y1; ++y, o += pitch) {
+                const uint32_t down =
+                    y + 1 < gh ? src.word(o + pitch, avail) : 0u;
+                // only bit 7 of the byte before and bit 0 of the byte after
+                // reach the word (cluster_bits reads prev >> 31, next << 31)
+                const uint32_t prev = c > 0 ? src.byte(o - 1) << 24 : 0u;
+                const uint32_t next = avail > 4 ? src.byte(o + 4) : 0u;
+                total += __popc(mvt::cluster_bits(w, prev, next, up, down) &
+                                center);
+                up = w;
+                w = down & keep;
+            }
+        }
     }
     for (int off = 16; off > 0; off >>= 1)
         total += __shfl_down_sync(kFullMask, total, off);
-    if (lane == 0) {
-        counts[frame] = static_cast<int32_t>(total);
-        motion[frame] = static_cast<int>(total) >= need ? 1 : 0;
+    return total;
+}
+
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copies `bytes` (a multiple of 16, 16-byte-aligned ends) with one bulk
+// copy completing on `barrier`, which it initialises; 0 bytes completes the
+// barrier's phase at once.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* barrier) {
+    const uint32_t bar = shared_address(barrier);
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile(
+        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+        "r"(bytes)
+        : "memory");
+    if (bytes > 0)
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            " [%0], [%1], %2, [%3];\n" ::"r"(shared_address(dst)),
+            "l"(src), "r"(bytes), "r"(bar)
+            : "memory");
+}
+
+__device__ __forceinline__ void wait_phase0(uint64_t* barrier) {
+    const uint32_t bar = shared_address(barrier);
+    uint32_t done = 0;
+    do {
+        asm volatile(
+            "{\n"
+            " .reg .pred p;\n"
+            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+            " selp.u32 %0, 1, 0, p;\n"
+            "}\n"
+            : "=r"(done)
+            : "r"(bar)
+            : "memory");
+    } while (!done);
+}
+
+// kShared: the CTA's span bulk-copied to shared memory; else each warp reads
+// its frame from device memory.
+template <bool kShared, bool kAligned>
+__global__ void __launch_bounds__(32 * kMaxFrames)
+word_cluster_kernel(const uint8_t* __restrict__ rows, int batch, int gh,
+                    int pitch, int gw, int y_lo, int y_hi, int need,
+                    int32_t* __restrict__ counts,
+                    uint8_t* __restrict__ motion) {
+    const int frames = blockDim.x >> 5;
+    const int f0 = blockIdx.x * frames;
+    const int nf = min(frames, batch - f0);
+    const int k = threadIdx.x >> 5;
+    const int gww = (gw + 31) >> 5;
+    const long long frame_bytes = static_cast<long long>(gh) * pitch;
+    uint32_t total;
+    if constexpr (!kShared) {
+        if (k >= nf) return;
+        const GlobalFrame src{rows + (f0 + k) * frame_bytes};
+        total = count_frame(src, 0, gh, pitch, gw, gww, y_lo, y_hi);
+    } else {
+        extern __shared__ __align__(16) uint8_t smem[];
+        uint64_t* barrier = reinterpret_cast<uint64_t*>(smem);
+        uint8_t* data = smem + kBarrierBytes;
+        const uint8_t* span = rows + f0 * frame_bytes;
+        const int len = static_cast<int>(nf * frame_bytes);
+        const int head = static_cast<int>(
+            reinterpret_cast<uintptr_t>(span) & 15);
+        // [a, d): the span's 16-byte-aligned middle, as offsets into it
+        const int a = min((16 - head) & 15, len);
+        const int d = max(a, ((head + len) & ~15) - head);
+        if (threadIdx.x == 0)
+            bulk_copy(data + head + a, span + a, d - a, barrier);
+        for (int i = threadIdx.x; i < a; i += blockDim.x)
+            data[head + i] = span[i];
+        for (int i = d + threadIdx.x; i < len; i += blockDim.x)
+            data[head + i] = span[i];
+        __syncthreads();
+        if (k >= nf) return;  // warp 0, which issued the copy, stays
+        wait_phase0(barrier);
+        const SharedSpan<kAligned> src{reinterpret_cast<const uint32_t*>(data),
+                                       data, head};
+        total = count_frame(src, static_cast<int>(k * frame_bytes), gh, pitch,
+                            gw, gww, y_lo, y_hi);
     }
+    if ((threadIdx.x & 31) == 0) {
+        counts[f0 + k] = static_cast<int32_t>(total);
+        motion[f0 + k] = static_cast<int>(total) >= need ? 1 : 0;
+    }
+}
+
+// Lets the kernel take up to `optin` bytes of dynamic shared memory on
+// `device`, asked of the CUDA runtime once a device.
+template <bool kAligned>
+cudaError_t allow_shared(int device, int optin) {
+    static std::atomic<bool> done[mvt::kMaxDevices];
+    const bool cached = device >= 0 && device < mvt::kMaxDevices;
+    if (cached && done[device].load(std::memory_order_relaxed))
+        return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(
+        word_cluster_kernel<true, kAligned>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err == cudaSuccess && cached)
+        done[device].store(true, std::memory_order_relaxed);
+    return err;
+}
+
+template <bool kShared, bool kAligned>
+int launch(const uint8_t* rows, int batch, int gh, int pitch, int gw,
+           int y_lo, int y_hi, int need, int frames, long long smem,
+           int device, int optin, int32_t* counts, uint8_t* motion,
+           cudaStream_t stream) {
+    if (smem > 48 * 1024) {
+        const cudaError_t err = allow_shared<kAligned>(device, optin);
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    word_cluster_kernel<kShared, kAligned>
+        <<<(batch + frames - 1) / frames, 32 * frames,
+           static_cast<size_t>(smem), stream>>>(rows, batch, gh, pitch, gw,
+                                                y_lo, y_hi, need, counts,
+                                                motion);
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 = launched).
-// need = max(1, clusters_needed), applied by the caller.
-extern "C" int mvt_word_cluster_counts(const void* words, int batch, int gh,
-                                       int gww, int gw, int y_min, int y_max,
-                                       int need, void* counts, void* motion,
+// Launches on `stream` of `device` (made current only where it is not) and
+// returns the CUDA error (0 = launched): the bulk copy to shared memory
+// where a frame fits in one block's, else device-memory reads.  need =
+// max(1, clusters_needed), applied by the caller.  ceil(gw / 8) <= pitch <=
+// 4 * ceil(gw / 32).
+extern "C" int mvt_word_cluster_counts(const void* rows, int batch, int gh,
+                                       int pitch, int gw, int y_min,
+                                       int y_max, int need, void* counts,
+                                       void* motion, int device,
                                        void* stream) {
-    if (batch > 0) {
-        const int blocks = (batch + kWarpsPerBlock - 1) / kWarpsPerBlock;
-        word_cluster_kernel<<<blocks, 32 * kWarpsPerBlock, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const uint32_t*>(words), batch, gh, gww, gw, y_min,
-            y_max, need, static_cast<int32_t*>(counts),
-            static_cast<uint8_t*>(motion));
-    }
-    return static_cast<int>(cudaGetLastError());
+    const int gww = (gw + 31) / 32;
+    if (batch < 0 || gh < 0 || gw < 1 || pitch < (gw + 7) / 8 ||
+        pitch > 4 * gww)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const mvt::DeviceGuard guard(device);
+    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+    if (batch == 0 || gh == 0) return static_cast<int>(cudaGetLastError());
+    int sms = 0, optin = 0;
+    cudaError_t err = mvt::device_attribute<cudaDevAttrMultiProcessorCount>(
+        device, &sms);
+    if (err == cudaSuccess)
+        err = mvt::device_attribute<cudaDevAttrMaxSharedMemoryPerBlockOptin>(
+            device, &optin);
+    if (err != cudaSuccess) return static_cast<int>(err);
+
+    // one wave of about four CTAs an SM, at most kMaxFrames frames a CTA
+    int frames = std::min(kMaxFrames, (batch + 4 * sms - 1) / (4 * sms));
+    const long long frame_bytes = static_cast<long long>(gh) * pitch;
+    const long long fit =
+        (optin - shared_bytes(0, frame_bytes)) / frame_bytes;
+    const bool shared = fit >= 1;
+    if (shared) frames = static_cast<int>(std::min<long long>(frames, fit));
+    const long long smem = shared ? shared_bytes(frames, frame_bytes) : 0;
+    const int y_lo = std::max(y_min, 0);
+    const int y_hi = std::max(y_lo, std::min(y_max, gh));
+    const uint8_t* r = static_cast<const uint8_t*>(rows);
+    int32_t* c = static_cast<int32_t*>(counts);
+    uint8_t* m = static_cast<uint8_t*>(motion);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool aligned =
+        pitch % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % 4 == 0;
+#define MVT_LAUNCH(S, A)                                                   \
+    launch<S, A>(r, batch, gh, pitch, gw, y_lo, y_hi, need, frames, smem, \
+                 device, optin, c, m, s)
+    if (!shared) return MVT_LAUNCH(false, false);
+    return aligned ? MVT_LAUNCH(true, true) : MVT_LAUNCH(true, false);
+#undef MVT_LAUNCH
 }

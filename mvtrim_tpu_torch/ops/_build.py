@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels at first use.
+"""Build, load and launch the port's CUDA kernels.
 
 ``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
 C interface, under ``build/mvtrim_tpu_torch/`` at the root of the
@@ -8,6 +8,10 @@ carries a hash of all the sources and of the headers they include
 (``csrc/*.cuh``), so an edited, added or removed file builds anew and an
 unchanged set is reused.  Nothing here runs at import:
 the CPU build never needs ``nvcc``.
+
+``launch`` is the one way the wrappers call a kernel's C entry point: bound
+once, on the tensor's card and PyTorch's current stream there, raising on a
+nonzero CUDA error, and counting the launch on the wrapper.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -35,17 +41,18 @@ _L = ctypes.c_longlong
 # C entry points of the library and their argument types (every pointer
 # and the stream as c_void_p, or ctypes would cut them to 32 bits)
 SIGNATURES = {
-    # words, batch, gh, gww, gw, y_min, y_max, need, counts, motion, stream
-    "mvt_word_cluster_counts": [_P] + [_I] * 7 + [_P, _P, _P],
+    # rows, batch, gh, pitch, gw, y_min, y_max, need, counts, motion,
+    # device, stream
+    "mvt_word_cluster_counts": [_P] + [_I] * 7 + [_P, _P, _I, _P],
     # votes, is_int32, batch, gh, gw, y_min, y_max, thr, need, counts,
-    # motion, stream
-    "mvt_cluster_map_counts": [_P] + [_I] * 8 + [_P, _P, _P],
-    # luma, batch, height, width, block, gh, gw, vec, grid, stream
-    "mvt_sad_block_grid": [_P] + [_I] * 7 + [_P, _P],
+    # motion, device, stream
+    "mvt_cluster_map_counts": [_P] + [_I] * 8 + [_P, _P, _I, _P],
+    # luma, batch, height, width, block, gh, gw, vec, grid, device, stream
+    "mvt_sad_block_grid": [_P] + [_I] * 7 + [_P, _I, _P],
     # mvs, mv_counts, batch, m, gh, gw, y_min, y_max, bound, thr, need,
-    # shift, scratch, scratch_cells, counts, motion, stream
+    # shift, scratch, scratch_cells, counts, motion, device, stream
     "mvt_mv_cluster_counts": [_P, _P] + [_I] * 6 + [_L] + [_I] * 3
-                             + [_P, _L, _P, _P, _P],
+                             + [_P, _L, _P, _P, _I, _P],
     # batch, gh, gw, y_min, y_max, force_global
     "mvt_mv_cluster_scratch": [_I] * 6,
 }
@@ -147,3 +154,23 @@ def load_library():
             fn.argtypes = argtypes
         _lib = lib
         return lib
+
+
+_entries: dict = {}
+_count_lock = threading.Lock()
+
+
+def launch(name: str, counter, device: torch.device, *args) -> None:
+    """Call the C entry point ``name`` with ``args``, then the index of
+    ``device`` (a CUDA device; the C side makes it current only where it is
+    not) and PyTorch's current stream on it.  Raises RuntimeError on a
+    nonzero CUDA error; else adds one to ``counter.launches``."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries.setdefault(name, getattr(load_library(), name))
+    index = device.index
+    err = fn(*args, index, torch._C._cuda_getCurrentRawStream(index))
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
+    with _count_lock:
+        counter.launches += 1

@@ -1,12 +1,16 @@
 """Cluster counts: the device ops of the MV scan paths.
 
-Two halves of ``mvtrim_tpu/ops/cluster.py``, each one op with a
-hand-written CUDA kernel and a plain PyTorch version of the same math:
+Two halves of ``mvtrim_tpu/ops/cluster.py``, each with a hand-written
+CUDA kernel and a plain PyTorch version of the same math:
 
-* word domain (``cluster_words_op``, ``csrc/word_cluster.cu``): the bits
-  and words payloads.  Each int32 word holds 32 grid cells of one row
-  (bit k of word c is cell x = 32c + k).  A cell counts when it is
-  active, has an active 4-neighbour and lies in the centre window.
+* word domain (``cluster_bits_op`` and ``cluster_words_op``, one kernel,
+  ``csrc/word_cluster.cu``): the bits payload, uint8 [B, gh, ceil(gw/8)]
+  as the native scanner emits it, and the words payload, int32 [B, gh *
+  gww].  The kernel reads either as rows of bytes at their own pitch:
+  word c of a row is bytes 4c..4c+3, little-endian, so bit k of word c is
+  cell x = 32c + k (byte j of a bits row is byte j of a words row).  A
+  cell counts when it is active, has an active 4-neighbour and lies in
+  the centre window.
 * vote level (``cluster_map_op``, ``csrc/cluster_map.cu``): the grids
   payload, and the second half of the SAD path.  A cell of a uint8 or
   int32 grid counts when it and one of its 4-neighbours reach a runtime
@@ -24,15 +28,14 @@ Nothing falls back from one to the other.
 
 from __future__ import annotations
 
-import ctypes
 import functools
-import threading
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..core.types import GridGeometry
+from . import _build
 
 
 def word_geometry(geom: GridGeometry) -> tuple[int, int, int]:
@@ -109,57 +112,70 @@ def word_cluster_counts_plain(words: torch.Tensor,
     return v.sum(dim=(1, 2)).to(torch.int32)
 
 
-def _check_words(words: torch.Tensor, geom: GridGeometry) -> None:
-    used = word_geometry(geom)[1]
-    if words.dtype != torch.int32:
-        raise TypeError(f"words must be int32, got {words.dtype}")
-    if words.dim() != 2 or words.shape[1] != used:
-        raise ValueError(
-            f"words must be [B, {used}] for a {geom.gw}x{geom.gh} grid, "
-            f"got {tuple(words.shape)}")
-    if not words.is_contiguous():
-        raise ValueError("words must be contiguous")
+def bits_to_words(bits: torch.Tensor, geom: GridGeometry) -> torch.Tensor:
+    """``repack_bits_words`` in torch, on the bits' device: uint8 [B, gh,
+    ceil(gw/8)] -> int32 words [B, used], each row padded with zero bytes
+    to 4 * gww and read as little-endian int32 words."""
+    gww, used, _ = word_geometry(geom)
+    rows = F.pad(bits, (0, 4 * gww - bits.shape[2]))
+    return rows.reshape(bits.shape[0], 4 * used).view(torch.int32)
 
 
-def _launch(words: torch.Tensor, geom: GridGeometry, need: int):
-    from ._build import load_library
+def bits_cluster_counts_plain(bits: torch.Tensor,
+                              geom: GridGeometry) -> torch.Tensor:
+    """Plain PyTorch cluster counts of the bits payload: uint8 [B, gh,
+    ceil(gw/8)] -> int32 [B], ``word_cluster_counts_plain`` of
+    ``bits_to_words``."""
+    return word_cluster_counts_plain(bits_to_words(bits, geom), geom)
 
-    lib = load_library()
-    gww, _, _ = word_geometry(geom)
-    b = words.shape[0]
-    counts = torch.empty((b,), dtype=torch.int32, device=words.device)
-    motion = torch.empty((b,), dtype=torch.bool, device=words.device)
-    with torch.cuda.device(words.device):
-        stream = torch.cuda.current_stream(words.device).cuda_stream
-        err = lib.mvt_word_cluster_counts(
-            words.data_ptr(), b, geom.gh, gww, geom.gw, geom.y_min,
-            geom.y_max, need, counts.data_ptr(), motion.data_ptr(),
-            ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"word_cluster kernel launch failed: CUDA error {err}")
+
+def _check(t: torch.Tensor, dtype: torch.dtype, shape: tuple,
+           name: str) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape[1:]) != shape or t.dim() != len(shape) + 1:
+        raise ValueError(f"{name} must be [B, {', '.join(map(str, shape))}]"
+                         f", got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def outputs(like: torch.Tensor, b: int):
+    """A launch's outputs on the device of ``like``: counts int32 [b] and
+    motion bool [b].  Two allocations: one buffer with counts and motion as
+    views of it took longer on the card's host (PERF.md)."""
+    return (like.new_empty((b,), dtype=torch.int32),
+            like.new_empty((b,), dtype=torch.bool))
+
+
+def _launch_rows(rows: torch.Tensor, geom: GridGeometry, pitch: int,
+                 need: int):
+    """The word-domain kernel on rows of ``pitch`` bytes; counted on
+    ``cluster_words_op.launches``."""
+    b = rows.shape[0]
+    counts, motion = outputs(rows, b)
+    _build.launch("mvt_word_cluster_counts", cluster_words_op, rows.device,
+                  rows.data_ptr(), b, geom.gh, pitch, geom.gw, geom.y_min,
+                  geom.y_max, need, counts.data_ptr(), motion.data_ptr())
     return counts, motion
-
-
-_launch_lock = threading.Lock()
 
 
 def cluster_words_op(words: torch.Tensor, geom: GridGeometry,
                      clusters_needed: int):
     """words int32 [B, used] -> (counts int32 [B], motion bool [B]).
 
-    A CUDA tensor goes to the CUDA kernel (``cluster_words_op.launches``
-    counts those launches), a CPU tensor to ``word_cluster_counts_plain``;
-    any other device raises.
+    A CUDA tensor goes to the word-domain kernel, which reads each row as
+    4 * gww bytes (``cluster_words_op.launches`` counts its launches, those
+    of ``cluster_bits_op`` too); a CPU tensor to
+    ``word_cluster_counts_plain``; any other device raises.
     """
-    _check_words(words, geom)
+    gww, used, _ = word_geometry(geom)
+    _check(words, torch.int32, (used,), "words")
     need = max(1, clusters_needed)
-    if words.device.type == "cuda":
-        counts, motion = _launch(words, geom, need)
-        with _launch_lock:
-            cluster_words_op.launches += 1
-        return counts, motion
-    if words.device.type == "cpu":
+    kind = words.device.type
+    if kind == "cuda":
+        return _launch_rows(words, geom, 4 * gww, need)
+    if kind == "cpu":
         counts = word_cluster_counts_plain(words, geom)
         return counts, counts >= need
     raise RuntimeError(
@@ -167,6 +183,29 @@ def cluster_words_op(words: torch.Tensor, geom: GridGeometry,
 
 
 cluster_words_op.launches = 0
+
+
+def cluster_bits_op(bits: torch.Tensor, geom: GridGeometry,
+                    clusters_needed: int):
+    """bits uint8 [B, gh, ceil(gw/8)] (the native mvt_scan_bits layout)
+    -> (counts int32 [B], motion bool [B]), the decisions of
+    ``cluster_words_op`` on ``repack_bits_words(bits)``.
+
+    A CUDA tensor goes to the word-domain kernel at the bits' own pitch, no
+    repack (counted on ``cluster_words_op.launches``); a CPU tensor to
+    ``bits_cluster_counts_plain``; any other device raises.
+    """
+    pitch = (geom.gw + 7) // 8
+    _check(bits, torch.uint8, (geom.gh, pitch), "bits")
+    need = max(1, clusters_needed)
+    kind = bits.device.type
+    if kind == "cuda":
+        return _launch_rows(bits, geom, pitch, need)
+    if kind == "cpu":
+        counts = bits_cluster_counts_plain(bits, geom)
+        return counts, counts >= need
+    raise RuntimeError(
+        f"cluster_bits_op runs on cuda or cpu tensors, not {bits.device}")
 
 
 # --- vote level: the grids payload and the SAD grid ---
@@ -208,21 +247,12 @@ def _check_votes(votes: torch.Tensor, geom: GridGeometry) -> None:
 
 def _launch_map(votes: torch.Tensor, geom: GridGeometry, threshold: int,
                 need: int):
-    from ._build import load_library
-
-    lib = load_library()
     b = votes.shape[0]
-    counts = torch.empty((b,), dtype=torch.int32, device=votes.device)
-    motion = torch.empty((b,), dtype=torch.bool, device=votes.device)
-    with torch.cuda.device(votes.device):
-        stream = torch.cuda.current_stream(votes.device).cuda_stream
-        err = lib.mvt_cluster_map_counts(
-            votes.data_ptr(), int(votes.dtype == torch.int32), b, geom.gh,
-            geom.gw, geom.y_min, geom.y_max, threshold, need,
-            counts.data_ptr(), motion.data_ptr(), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"cluster_map kernel launch failed: CUDA error {err}")
+    counts, motion = outputs(votes, b)
+    _build.launch("mvt_cluster_map_counts", cluster_map_op, votes.device,
+                  votes.data_ptr(), int(votes.dtype == torch.int32), b,
+                  geom.gh, geom.gw, geom.y_min, geom.y_max, threshold, need,
+                  counts.data_ptr(), motion.data_ptr())
     return counts, motion
 
 
@@ -240,10 +270,7 @@ def cluster_map_op(votes: torch.Tensor, geom: GridGeometry, threshold: int,
     threshold = max(-(1 << 31), min(int(threshold), (1 << 31) - 1))
     need = max(1, clusters_needed)
     if votes.device.type == "cuda":
-        counts, motion = _launch_map(votes, geom, threshold, need)
-        with _launch_lock:
-            cluster_map_op.launches += 1
-        return counts, motion
+        return _launch_map(votes, geom, threshold, need)
     if votes.device.type == "cpu":
         counts = cluster_map_counts_plain(votes, geom, threshold)
         return counts, counts >= need

@@ -26,7 +26,6 @@ one to the other.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 
@@ -34,6 +33,7 @@ import numpy as np
 import torch
 
 from ..core.types import GridGeometry
+from . import _build
 from . import cluster as cluster_ops
 
 
@@ -115,10 +115,8 @@ def _scratch_cells(batch: int, geom: GridGeometry, device_index: int,
     """int32 cells of global histogram scratch a launch needs, 0 where the
     kernel keeps its histograms in shared memory (the kernel's own answer,
     from its shared-memory layout and the card's opt-in limit)."""
-    from ._build import load_library
-
     with torch.cuda.device(device_index):
-        cells = load_library().mvt_mv_cluster_scratch(
+        cells = _build.load_library().mvt_mv_cluster_scratch(
             batch, geom.gh, geom.gw, geom.y_min, geom.y_max,
             int(force_global))
     if cells < 0:
@@ -140,27 +138,18 @@ def uses_global_histogram(geom: GridGeometry, device: torch.device) -> bool:
 def _launch(mvs: torch.Tensor, counts: torch.Tensor, geom: GridGeometry,
             bound: int, thr: int, need: int, block_shift: int,
             force_global: bool):
-    from ._build import load_library
-
-    lib = load_library()
     b, m, _ = mvs.shape
     dev = mvs.device
-    out = torch.empty((b,), dtype=torch.int32, device=dev)
-    motion = torch.empty((b,), dtype=torch.bool, device=dev)
-    cells = _scratch_cells(b, geom, _device_index(dev), force_global)
+    got, motion = cluster_ops.outputs(mvs, b)
+    cells = _scratch_cells(b, geom, dev.index, force_global)
     scratch = torch.empty((cells,), dtype=torch.int32, device=dev) \
         if cells else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mvt_mv_cluster_counts(
-            mvs.data_ptr(), counts.data_ptr(), b, m, geom.gh, geom.gw,
-            geom.y_min, geom.y_max, bound, thr, need, block_shift,
-            None if scratch is None else scratch.data_ptr(), cells,
-            out.data_ptr(), motion.data_ptr(), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(
-            f"mv_cluster kernel launch failed: CUDA error {err}")
-    return out, motion
+    _build.launch("mvt_mv_cluster_counts", mv_cluster_op, dev,
+                  mvs.data_ptr(), counts.data_ptr(), b, m, geom.gh, geom.gw,
+                  geom.y_min, geom.y_max, bound, thr, need, block_shift,
+                  None if scratch is None else scratch.data_ptr(), cells,
+                  got.data_ptr(), motion.data_ptr())
+    return got, motion
 
 
 def mv_cluster_op(mvs: torch.Tensor, counts: torch.Tensor,
@@ -183,11 +172,8 @@ def mv_cluster_op(mvs: torch.Tensor, counts: torch.Tensor,
     bound = max(-(1 << 63), min(int(bound), (1 << 63) - 1))
     need = max(1, clusters_needed)
     if mvs.device.type == "cuda":
-        out, motion = _launch(mvs, counts, geom, bound, thr, need,
-                              block_shift, bool(global_histogram))
-        with cluster_ops._launch_lock:
-            mv_cluster_op.launches += 1
-        return out, motion
+        return _launch(mvs, counts, geom, bound, thr, need, block_shift,
+                       bool(global_histogram))
     if mvs.device.type == "cpu":
         out = mv_cluster_counts_plain(mvs, counts, geom, bound, thr,
                                       block_shift)

@@ -20,7 +20,6 @@ exact integer.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import numpy as np
@@ -28,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.types import GridGeometry
+from . import _build
 from . import cluster as cluster_ops
 
 
@@ -102,21 +102,14 @@ def _vector_width(luma: torch.Tensor, block_size: int) -> int:
 
 def _launch_grid(luma: torch.Tensor, geom: GridGeometry,
                  block_size: int) -> torch.Tensor:
-    from ._build import load_library
-
-    lib = load_library()
     b = luma.shape[0] - 1
     _, h, w = luma.shape
     vec = _vector_width(luma, block_size)
     grid = torch.empty((b, geom.gh, geom.gw), dtype=torch.int32,
                        device=luma.device)
-    with torch.cuda.device(luma.device):
-        stream = torch.cuda.current_stream(luma.device).cuda_stream
-        err = lib.mvt_sad_block_grid(
-            luma.data_ptr(), b, h, w, block_size, geom.gh, geom.gw, vec,
-            grid.data_ptr(), ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"sad_block kernel launch failed: CUDA error {err}")
+    _build.launch("mvt_sad_block_grid", sad_grid_op, luma.device,
+                  luma.data_ptr(), b, h, w, block_size, geom.gh, geom.gw, vec,
+                  grid.data_ptr())
     return grid
 
 
@@ -126,10 +119,7 @@ def sad_grid_op(luma: torch.Tensor, geom: GridGeometry,
     gw] from the block-SAD kernel (``sad_grid_op.launches`` counts its
     launches)."""
     _check_luma(luma, geom, block_size)
-    grid = _launch_grid(luma, geom, block_size)
-    with cluster_ops._launch_lock:
-        sad_grid_op.launches += 1
-    return grid
+    return _launch_grid(luma, geom, block_size)
 
 
 sad_grid_op.launches = 0

@@ -66,13 +66,13 @@ class TestDetector:
                                                  device_batch=5))
         assert det.device_batch == 5
         calls = []
-        real = torch_detector.cluster_ops.cluster_words_op
+        real = torch_detector.cluster_ops.cluster_bits_op
 
-        def spy(words, geom, need):
-            calls.append(words.shape[0])
-            return real(words, geom, need)
+        def spy(bits, geom, need):
+            calls.append(bits.shape[0])
+            return real(bits, geom, need)
 
-        monkeypatch.setattr(torch_detector.cluster_ops, "cluster_words_op",
+        monkeypatch.setattr(torch_detector.cluster_ops, "cluster_bits_op",
                             spy)
         det.scan_bits(packed(4, 12, det))
         assert calls == [5, 5, 2]
