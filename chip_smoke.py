@@ -22,9 +22,20 @@ words), vote grids (grids) and MV fields (mv_raw) through
 cap-sized sub-scans with the carry threaded, each on through merging,
 segmentation and the cut decision; and ``tools.tune``'s three routes, with
 and without ``--device-stats``, over a stand-in reader that serves the
-same data, against the same calls with the CPU build.  The launch counts
-are set to 0 just before each path and read just after it; the bits path
-must also make no host repack of its masks.
+same data, against the same calls with the CPU build.  Over the same
+stand-in reader it drives in both cases: the pipeline's mv_raw workers and
+feeder at an MV capacity the fullest frames overflow (their chunks are
+re-decoded at a larger capacity and decided on the card); the archive scan
+(``parallel.archive.scan_archive_reader``) on the bits and SAD payloads
+(SAD in short chunks over two decode workers, whose chunk parts are made
+to interleave so that placeholder rows are fed), and on bits again in two
+ranks joined by gloo, both on this card, with one rank given fewer chunks
+than the other; and ``tune --mesh 1`` on the grids and SAD routes; each
+against the CPU build and the NumPy oracle.  The launch counts are set to 0 just before each
+path and read just after it; the bits path must also make no host repack
+of its masks.  ``tools.doctor`` runs first and must report every CUDA
+check passed, a missing libav as a failed check, and its end-to-end check
+on the card's backend.
 
 Phase 5 times each kernel against its plain version and its bound: K1 at
 1080p B = 750 and 2048 and 4K B = 2048 at both row pitches (the bits as the
@@ -36,6 +47,7 @@ step by step, and the feeder's dispatch of one 750-frame chunk.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import math
@@ -44,6 +56,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -86,6 +99,12 @@ PATH_KERNELS = {
     "tune_grids": ("cluster_map_counts",),
     "tune_mv_raw": ("mv_cluster_counts",),
     "tune_sad": ("sad_block_grid", "cluster_map_counts"),
+    "mv_raw_overflow": ("mv_cluster_counts",),
+    "archive_bits": ("word_cluster_counts",),
+    "archive_sad": ("sad_block_grid", "cluster_map_counts"),
+    "archive_bits_2rank": ("word_cluster_counts",),
+    "tune_grids_mesh": ("cluster_map_counts",),
+    "tune_sad_mesh": ("sad_block_grid", "cluster_map_counts"),
 }
 GEOMETRIES = [  # (width, height, vertical_mask)
     (1920, 1080, 0.05),   # gw=120, not a multiple of 32
@@ -145,9 +164,13 @@ TUNE_THRESHOLDS = (4.0, 16.0, 64.0)
 TUNE_VECTORS = (0, 1, 2)
 TUNE_CLUSTERS = (1, 2, 4)
 TUNE_SAD_THRESHOLDS = (4.0, 12.0, 30.0)
-# the seeded SAD sweep's clip: one 30 s chunk in three cap-resumed
-# sub-scans, then a short second chunk
-TUNE_SAD_SEC = 32.0
+# the seeded MV sweeps' clip (one chunk, the first motion window); the
+# seeded SAD sweep's clip and chunks: one 12 s chunk in two
+# cap-resumed sub-scans (258 + 42 frames at 1080p), then a short second
+# chunk
+TUNE_MV_SEC = 20.0
+TUNE_SAD_SEC = 14.0
+TUNE_SAD_CHUNK_SEC = 12.0
 # phase 5: the raw-MV kernel's frames a launch and batches rotated, and its
 # cells: (label, geometry, capacity M, counts, layout) as in MV_CASES
 MV_TIMING_BATCH = (2048, 3)
@@ -177,6 +200,19 @@ SAD_TIMING = (("1080p", (1920, 1080), 3), ("4K", (3840, 2160), 2))
 FPS = 25.0
 CLIP_SEC = 60.0
 MOTION_WINDOWS = ((5.0, 12.0), (40.0, 44.0))
+# the archive paths: seconds of seeded 1080p data (bits, SAD) and frames a
+# shard a dispatch; the SAD scan's chunks and decode workers (three chunks
+# of 100 frames, each decoded in parts of 64 and 36 frames); the two-rank
+# bits scan's chunks (three: rank 0 takes two, rank 1 one, and joins the
+# dispatches it has no frames for); the mv_raw overflow path's chunks
+ARCHIVE_BITS_SEC = 60.0
+ARCHIVE_SAD_SEC = 12.0
+ARCHIVE_FPD = 256
+ARCHIVE_SAD_CHUNK_SEC = 4.0
+ARCHIVE_SAD_WORKERS = 2
+ARCHIVE_2RANK_CHUNK_SEC = 20.0
+OVERFLOW_CHUNK_SEC = 10.0
+RANK_TIMEOUT = 300
 
 
 def log(msg: str) -> None:
@@ -935,20 +971,29 @@ def mv_data(seed: int):
     return synthetic_mvs(seed, GridGeometry.build(1920, 1080, cfg), cfg)
 
 
+@functools.lru_cache(maxsize=1)
+def mv_oracle_ts(seed: int) -> list:
+    """The oracle backend's motion timestamps over mv_data (oracle.
+    check_frame per frame), made once per run."""
+    mvs, counts, pts = mv_data(seed)
+    t0 = time.perf_counter()
+    ref = MVClusterDetector(1920, 1080, Config(scan_backend="oracle"))
+    ref_ts = _scan_raw(ref, mvs, counts, pts)
+    log(f"mv_raw oracle reference: {len(pts)} frames, mean "
+        f"{counts.mean():.1f} MVs a frame (most {counts.max()}), in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return ref_ts
+
+
 def mv_raw_path(seed: int):
     """Seeded 1080p MV fields through MVClusterDetector.scan_raw_mvs_async
     on the card, held against the oracle backend (oracle.check_frame per
     frame)."""
     cfg = Config()
     mvs, counts, pts = mv_data(seed)
-    t0 = time.perf_counter()
-    ref = MVClusterDetector(1920, 1080, Config(scan_backend="oracle"))
-    ref_ts = _scan_raw(ref, mvs, counts, pts)
+    ref_ts = mv_oracle_ts(seed)
     ref_cut = _decide(ref_ts, cfg)
     _check_windows(ref_cut, cfg, -1 / FPS, "mv_raw oracle")
-    log(f"mv_raw oracle reference: {len(pts)} frames, mean "
-        f"{counts.mean():.1f} MVs a frame, in "
-        f"{time.perf_counter() - t0:.3f} s")
 
     def run() -> dict:
         det = MVClusterDetector(1920, 1080, cfg)  # auto -> cuda
@@ -974,15 +1019,26 @@ def mv_raw_path(seed: int):
     return run
 
 
+@functools.lru_cache(maxsize=1)
+def bits_data(seed: int) -> np.ndarray:
+    """synthetic_masks at 1080p as the native scanner packs them: uint8
+    [N, gh, ceil(gw/8)], made once per run."""
+    active, _ = synthetic_masks(seed, GridGeometry.build(1920, 1080,
+                                                         Config()))
+    return np.packbits(active, axis=2, bitorder="little")
+
+
 class SeededReader:
     """A stand-in for ``native.VideoReader`` over the seeded 1080p data,
-    for ``tools.tune`` where libav does not load.  ``scan_mvs`` serves
-    ``mv_data``'s fields (a frame past ``max_mv`` truncated, its count
-    negated, as the native scan marks an overflow), ``scan_grids_multi``
-    the vote grids the native scatter makes of them (uint8, saturating at
-    255) and ``scan_luma`` ``LumaClip``'s frames.  Each scan serves the
-    frames of [start, end), at most ``max_frames``, and with ``resume``
-    goes on after the last frame it served."""
+    where libav does not load.  ``scan_bits`` serves ``bits_data``'s
+    masks, ``scan_mvs`` ``mv_data``'s fields (a frame past ``max_mv``
+    truncated, its count negated, as the native scan marks an overflow),
+    ``scan_grids_multi`` the vote grids the native scatter makes of them
+    (uint8, saturating at 255) and ``scan_luma`` ``LumaClip``'s frames.
+    Each scan serves the frames of [start, end), at most ``max_frames``,
+    and with ``resume`` goes on after the last frame it served; a
+    ``timing`` counts the frames that carry MV side data, as the native
+    scans do."""
 
     def __init__(self, seed: int, seconds: float):
         self.seed = seed
@@ -997,6 +1053,9 @@ class SeededReader:
         return self
 
     def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
         pass
 
     def _range(self, start, end, frame_skip, max_frames, resume):
@@ -1007,22 +1066,37 @@ class SeededReader:
         self.next = hi
         return lo, hi
 
+    def _geometry(self, gw, gh, y_min, y_max) -> None:
+        g = self.geom
+        if (gw, gh, y_min, y_max) != (g.gw, g.gh, g.y_min, g.y_max):
+            raise AssertionError("the scan asked for another grid")
+
+    def scan_bits(self, start, end, *, threshold_sq, block_shift, gw, gh,
+                  y_min, y_max, vectors_needed, frame_skip=1,
+                  max_frames=4096, timing=None, resume=False):
+        self._geometry(gw, gh, y_min, y_max)
+        lo, hi = self._range(start, end, frame_skip, max_frames, resume)
+        if timing is not None:
+            timing.frames_with_mvs += hi - lo
+        return bits_data(self.seed)[lo:hi], self.pts[lo:hi]
+
     def scan_mvs(self, start, end, *, frame_skip=1, max_frames=4096,
-                 max_mv=8192, resume=False):
+                 max_mv=8192, timing=None, resume=False):
         lo, hi = self._range(start, end, frame_skip, max_frames, resume)
         mvs, counts, pts = mv_data(self.seed)
         out = np.zeros((hi - lo, max_mv, 4), np.int16)
         m = min(max_mv, mvs.shape[1])
         out[:, :m] = mvs[lo:hi, :m]
         c = counts[lo:hi]
+        if timing is not None:
+            timing.frames_with_mvs += int((c != 0).sum())
         return out, np.where(c > max_mv, -c, c).astype(np.int32), pts[lo:hi]
 
     def scan_grids_multi(self, start, end, *, thresholds_sq, block_shift,
                          gw, gh, y_min, y_max, frame_skip=1,
                          max_frames=4096, resume=False):
         g = self.geom
-        if (gw, gh, y_min, y_max) != (g.gw, g.gh, g.y_min, g.y_max):
-            raise AssertionError("tune asked for another grid")
+        self._geometry(gw, gh, y_min, y_max)
         lo, hi = self._range(start, end, frame_skip, max_frames, resume)
         mvs, counts, pts = mv_data(self.seed)
         fields = torch.from_numpy(mvs[lo:hi])
@@ -1033,7 +1107,7 @@ class SeededReader:
         return np.stack(grids, axis=1), pts[lo:hi], counts[lo:hi] > 0
 
     def scan_luma(self, start, end, *, frame_skip=1, max_frames=256,
-                  resume=False):
+                  timing=None, resume=False):
         lo, hi = self._range(start, end, frame_skip, max_frames, resume)
         if self.luma is None:
             self.luma = LumaClip(self.seed, self.width, self.height)
@@ -1113,67 +1187,493 @@ def clip_path(clip: str, workdir: str, name: str, refs: dict):
     return run
 
 
-def tune_path(open_reader, kind: str, label: str):
-    """tools.tune's ``kind`` route over ``open_reader()`` (a decoded clip
-    or a SeededReader), on the card, against the same call with the CPU
-    build: the rows equal, with and without --device-stats (saved_pct
-    within 0.01 there, the f32 sums' order may differ)."""
+def tune_sweep(open_reader, kind: str, device_stats: bool, backend: str,
+               mesh=None) -> list:
+    """tools.tune's ``kind`` route over ``open_reader()``."""
     from mvtrim_tpu_torch.tools import tune
 
-    def sweep(device_stats: bool, backend: str):
-        cfg = Config(scan_backend=backend)
-        with open_reader() as reader:
-            if kind == "sad":
-                return tune.sweep_sad_reader(
-                    reader, TUNE_SAD_THRESHOLDS, TUNE_CLUSTERS, cfg=cfg,
-                    device_stats=device_stats)
-            return tune.sweep_reader(
-                reader, TUNE_THRESHOLDS, TUNE_VECTORS, TUNE_CLUSTERS,
-                cfg=cfg, device_stats=device_stats, scan_input=kind)
+    cfg = Config(scan_backend=backend, **(
+        {"chunk_duration_sec": TUNE_SAD_CHUNK_SEC} if kind == "sad" else {}))
+    with open_reader() as reader:
+        if kind == "sad":
+            return tune.sweep_sad_reader(
+                reader, TUNE_SAD_THRESHOLDS, TUNE_CLUSTERS, cfg=cfg,
+                device_stats=device_stats, mesh=mesh)
+        return tune.sweep_reader(
+            reader, TUNE_THRESHOLDS, TUNE_VECTORS, TUNE_CLUSTERS, cfg=cfg,
+            device_stats=device_stats, scan_input=kind, mesh=mesh)
 
+
+def tune_refs(open_reader, kind: str) -> tuple[dict, float]:
+    """The CPU build's rows of the route, with and without
+    --device-stats, and the seconds they took."""
     t0 = time.perf_counter()
-    refs = {ds: sweep(ds, "torch") for ds in (False, True)}
-    ref_s = time.perf_counter() - t0
+    refs = {ds: tune_sweep(open_reader, kind, ds, "torch")
+            for ds in (False, True)}
     if not any(r["motion_frames"] for r in refs[False]):
         raise AssertionError(f"tune {kind}: no config found motion")
+    return refs, time.perf_counter() - t0
+
+
+def tune_path(open_reader, kind: str, label: str, refs, mesh: bool = False):
+    """tools.tune's ``kind`` route over ``open_reader()`` (a decoded clip
+    or a SeededReader), on the card, against the CPU build's rows
+    ``refs``: equal, with and without --device-stats (saved_pct within
+    0.01 there, the f32 sums' order may differ).  With ``mesh``, the route
+    runs as ``tune --mesh 1`` (a one-card mesh), and the same call on the
+    CPU build, a one-shard CPU mesh, must give the reference rows too."""
+    from mvtrim_tpu_torch.parallel.mesh import build_mesh
+
+    refs, ref_s = refs
+    name = f"tune {kind}{' --mesh 1' if mesh else ''}"
+    if mesh:
+        t0 = time.perf_counter()
+        rows = tune_sweep(open_reader, kind, False, "torch",
+                          build_mesh(1, device="cpu"))
+        if rows != refs[False]:
+            raise AssertionError(f"{name}: the CPU build's mesh rows differ")
+        ref_s = time.perf_counter() - t0
 
     def run() -> dict:
         t0 = time.perf_counter()
         for ds, ref in refs.items():
-            rows = sweep(ds, "auto")
+            rows = tune_sweep(open_reader, kind, ds, "auto",
+                              build_mesh(1) if mesh else None)
             if len(rows) != len(ref):
-                raise AssertionError(f"tune {kind}: {len(rows)} rows")
+                raise AssertionError(f"{name}: {len(rows)} rows")
             for got, want in zip(rows, ref):
                 if ({k: v for k, v in got.items() if k != "saved_pct"}
                         != {k: v for k, v in want.items()
                             if k != "saved_pct"}
                         or abs(got["saved_pct"] - want["saved_pct"])
                         > (0.01 if ds else 0.0)):
-                    raise AssertionError(f"tune {kind}: {got} != {want}")
+                    raise AssertionError(f"{name}: {got} != {want}")
         tune_s = time.perf_counter() - t0
-        log(f"e2e {label} tune {kind}: {len(refs[False])} configs, rows on "
-            f"the card == the CPU build's, with and without "
-            f"--device-stats; both sweeps {tune_s * 1e3:.3f} ms on the card, "
+        log(f"e2e {label} {name}: {len(refs[False])} configs, rows on the "
+            f"card == the CPU build's, with and without --device-stats; "
+            f"both sweeps {tune_s * 1e3:.3f} ms on the card, "
             f"{ref_s * 1e3:.3f} ms on the CPU build")
         return {"tune_ms": tune_s * 1e3}
 
     return run
 
 
+def mv_raw_overflow_path(seed: int):
+    """The pipeline's mv_raw workers and feeder
+    (``ProcessingPipeline._parallel_scan``) over the seeded MV fields at
+    an MV capacity below the fullest frame's count, in 10 s chunks: each
+    chunk holding such a frame is re-decoded at the next power of two and
+    decided on the card at that capacity; the decisions are the oracle
+    backend's."""
+    from mvtrim_tpu_torch.utils.timing import TimingCollector
+
+    mvs, counts, pts = mv_data(seed)
+    capacity = 1 << (int(counts.max()) - 1).bit_length() - 1
+    cfg = Config(scan_input="mv_raw", mv_capacity=capacity,
+                 chunk_duration_sec=OVERFLOW_CHUNK_SEC)
+    ref_ts = sorted(mv_oracle_ts(seed))
+
+    def run() -> dict:
+        restarts = []
+
+        class Overflowing(SeededReader):
+            def scan_mvs(self, *args, **kw):
+                out = super().scan_mvs(*args, **kw)
+                if (out[1] < 0).any():
+                    restarts.append(int(-out[1].min()))
+                return out
+
+        pipe = ProcessingPipeline("seeded-mv_raw", "", cfg=cfg)
+        pipe.open_reader = lambda mode: Overflowing(seed, CLIP_SEC)
+        pipe.duration = CLIP_SEC
+        t0 = time.perf_counter()
+        result = pipe._parallel_scan("mv", FPS, 1920, 1080)
+        scan_s = time.perf_counter() - t0
+        TimingCollector.clear()
+        same = (sorted(result.motion_ts) == ref_ts
+                and result.frames_scanned == len(pts))
+        log(f"e2e mv_raw overflow 1080p {len(pts)} frames at MVT_MV_CAPACITY="
+            f"{capacity} (fullest frame {int(counts.max())} MVs): "
+            f"{len(restarts)} chunk scans overflowed and were re-decoded at "
+            f"a larger capacity; {len(result.motion_ts)} motion frames, "
+            f"identical to the oracle backend: {same}; scan "
+            f"{scan_s * 1e3:.3f} ms")
+        if not restarts:
+            raise AssertionError("mv_raw overflow: no chunk overflowed")
+        if not same:
+            raise AssertionError("mv_raw overflow: differs from the oracle")
+        return {"scan_ms": scan_s * 1e3}
+
+    return run
+
+
+def block_sad_numpy(seq: np.ndarray, block: int, geom: GridGeometry):
+    """NumPy block SAD: uint8 [1 + n, H, W] -> int64 [n, gh, gw], frame
+    i + 1 against frame i, pixels past the frame counting zero."""
+    d = np.abs(seq[1:].astype(np.int16) - seq[:-1].astype(np.int16))
+    n, h, w = d.shape
+    full = np.zeros((n, geom.gh * block, geom.gw * block), np.int16)
+    full[:, :h, :w] = d
+    # a block's columns first, then its rows
+    cols = full.reshape(n, geom.gh * block, geom.gw, block).sum(
+        axis=3, dtype=np.int64)
+    return cols.reshape(n, geom.gh, block, geom.gw).sum(axis=2)
+
+
+@functools.lru_cache(maxsize=4)
+def archive_truth(seed: int, payload: str, seconds: float,
+                  chunk_sec: float = 0.0) -> dict:
+    """The NumPy oracle's decisions over the seeded data an archive scan
+    of ``seconds`` reads: the cluster rule on the masks (bits), or the
+    SAD contract chunk by chunk in chunks of ``chunk_sec``, a chunk's
+    first frame never motion (sad) -> {"segments", "motion_frames"}."""
+    cfg = Config()
+    geom = GridGeometry.build(1920, 1080, cfg)
+    need = oracle.effective_clusters_needed(cfg.clusters_needed)
+    n = int(seconds * FPS)
+    pts = np.arange(n) / FPS
+    if payload == "bits":
+        active, _ = synthetic_masks(seed, geom)
+        motion = oracle_counts(active[:n].astype(np.uint8), geom) >= need
+    else:
+        clip = LumaClip(seed, 1920, 1080)
+        bound = sad_ops.sad_threshold_sum(cfg.sad_threshold, cfg.block_size)
+        motion = np.zeros(n, bool)
+        chunk = int(chunk_sec * FPS)
+        for c0 in range(0, n, chunk):
+            prev = None
+            for lo in range(c0, min(c0 + chunk, n), 32):
+                frames = clip.frames(lo, min(lo + 32, c0 + chunk, n))
+                seq = frames if prev is None else np.concatenate(
+                    [prev[None], frames])
+                counts = oracle.count_clusters_batch(
+                    (block_sad_numpy(seq, cfg.block_size, geom) >= bound)
+                    .astype(np.uint8), vectors_needed=1, y_min=geom.y_min,
+                    y_max=geom.y_max)
+                first = lo + (1 if prev is None else 0)
+                motion[first:lo + len(frames)] = counts >= need
+                prev = frames[-1]
+    ts = oracle.merge_timestamps(pts[motion].tolist())
+    segments = oracle.segments_from_timestamps(
+        ts, max_gap_sec=cfg.max_gap_sec, padding_sec=cfg.padding_sec,
+        duration=seconds)
+    return {"segments": _segments_text(segments),
+            "motion_frames": int(ts.size)}
+
+
+ARCHIVE_SECONDS = {"bits": ARCHIVE_BITS_SEC, "sad": ARCHIVE_SAD_SEC}
+
+
+def interleaving_opener(seed: int, seconds: float):
+    """open_reader() for a SAD archive scan with two decode workers: each
+    worker's SeededReader holds its first continuation scan until the
+    other worker's reader reaches its own.  Both workers' first parts are
+    then fed before either second part, so at least one second part comes
+    after another chunk's rows, and its carry goes in as a placeholder
+    row."""
+    barrier = threading.Barrier(ARCHIVE_SAD_WORKERS)
+
+    class Interleaving(SeededReader):
+        waited = False
+
+        def scan_luma(self, start, end, *, resume=False, **kw):
+            if resume and not self.waited:
+                self.waited = True
+                barrier.wait(timeout=RANK_TIMEOUT)
+            return super().scan_luma(start, end, resume=resume, **kw)
+
+    return functools.partial(Interleaving, seed, seconds)
+
+
+def counting_rows(run):
+    """run() with the rows that the archive's SAD steps decide counted:
+    (its result, the rows)."""
+    from mvtrim_tpu_torch.parallel import archive
+
+    rows = []
+    real = archive.sharded_sad_scan_step
+
+    def counting(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def counted_step(luma, valid):
+            rows.append(len(valid))
+            return step(luma, valid)
+
+        return counted_step
+
+    archive.sharded_sad_scan_step = counting
+    try:
+        return run(), sum(rows)
+    finally:
+        archive.sharded_sad_scan_step = real
+
+
+def archive_path(seed: int, payload: str):
+    """The archive scan (``scan_archive_reader``) over the seeded data on
+    the ``payload``, its mesh the card (``build_mesh()``), against the
+    same call with the CPU build and a one-shard CPU mesh, and the NumPy
+    oracle: segments and stats equal.  The SAD scan's decode workers
+    interleave their chunks' parts, and both runs must feed placeholder
+    rows (rows decided past the frames scanned)."""
+    from mvtrim_tpu_torch.parallel.archive import scan_archive_reader
+    from mvtrim_tpu_torch.parallel.mesh import build_mesh
+
+    seconds = ARCHIVE_SECONDS[payload]
+    sad = payload == "sad"
+    cfg = Config(**({"chunk_duration_sec": ARCHIVE_SAD_CHUNK_SEC} if sad
+                    else {}))
+
+    def scan(backend, mesh=None):
+        opener = (interleaving_opener(seed, seconds) if sad else
+                  functools.partial(SeededReader, seed, seconds))
+        (segments, duration, stats), rows = counting_rows(
+            lambda: scan_archive_reader(
+                opener, dataclasses.replace(cfg, scan_backend=backend),
+                name=f"seeded-{payload}", frames_per_device=ARCHIVE_FPD,
+                payload=payload, mesh=mesh,
+                decode_workers=ARCHIVE_SAD_WORKERS if sad else 0))
+        placeholders = rows - stats["frames_scanned"] if sad else 0
+        if sad and placeholders < 1:
+            raise AssertionError(f"archive sad ({backend}): no placeholder "
+                                 f"row was fed ({rows} rows)")
+        return segments, duration, stats, placeholders
+
+    t0 = time.perf_counter()
+    truth = archive_truth(seed, payload, seconds, cfg.chunk_duration_sec)
+    truth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = scan("torch", build_mesh(1, device="cpu"))
+    ref_s = time.perf_counter() - t0
+    if (_segments_text(ref[0]) != truth["segments"]
+            or ref[2]["motion_frames"] != truth["motion_frames"]
+            or not truth["segments"]):
+        raise AssertionError(f"archive {payload}: the CPU build {ref[0]} "
+                             f"!= the oracle {truth}")
+
+    def run() -> dict:
+        t0 = time.perf_counter()
+        segments, duration, stats, placeholders = scan("auto")
+        wall = time.perf_counter() - t0
+        keys = ("frames_scanned", "frames_with_mvs", "motion_frames",
+                "dispatches", "global_batch", "payload")
+        same = (_segments_text(segments) == truth["segments"]
+                and duration == ref[1]
+                and all(stats[k] == ref[2][k] for k in keys))
+        parts = (f" in {cfg.chunk_duration_sec:g} s chunks over "
+                 f"{ARCHIVE_SAD_WORKERS} decode workers, {placeholders} "
+                 f"placeholder rows fed (CPU build: {ref[3]})" if sad else "")
+        log(f"e2e archive {payload} seeded 1080p {seconds:g} s{parts}: "
+            f"{stats['frames_scanned']} frames in {stats['dispatches']} "
+            f"dispatches of up to {stats['global_batch']} frames over mesh "
+            f"{stats['mesh']}, {stats['motion_frames']} motion frames, "
+            f"segments {truth['segments']}; identical to the CPU build and "
+            f"the oracle: {same}; wall {wall * 1e3:.3f} ms on the card "
+            f"({wall / (seconds / 60) * 1e3:.3f} ms a seeded minute, the "
+            f"stand-in reader's frame making included), "
+            f"{ref_s * 1e3:.3f} ms on the CPU build, oracle "
+            f"{truth_s * 1e3:.3f} ms")
+        if not same:
+            raise AssertionError(f"archive {payload}: {stats} differs from "
+                                 f"{ref[2]}")
+        return {"wall_ms": wall * 1e3, "dispatches": stats["dispatches"]}
+
+    return run
+
+
+RANK_SCRIPT = """
+import functools, json, sys
+import chip_smoke as S
+from mvtrim_tpu_torch import Config
+from mvtrim_tpu_torch.parallel import distributed
+from mvtrim_tpu_torch.parallel.archive import scan_archive_multiprocess_reader
+from mvtrim_tpu_torch.parallel.mesh import build_process_mesh
+
+assert distributed.initialize(), "the process group did not form"
+for wrapper, _, _ in S.KERNELS.values():
+    wrapper.launches = 0
+mesh = build_process_mesh()
+segments, _, stats = scan_archive_multiprocess_reader(
+    functools.partial(S.SeededReader, int(sys.argv[1]), S.ARCHIVE_BITS_SEC),
+    Config(chunk_duration_sec=S.ARCHIVE_2RANK_CHUNK_SEC), name="seeded-bits",
+    mesh=mesh,
+    frames_per_device=S.ARCHIVE_FPD)
+print(json.dumps({
+    "rank": distributed.world()[1], "device": str(mesh.devices[0, 0]),
+    "segments": [[s.start, s.end] for s in segments], "stats": stats,
+    "launches": {n: spec[0].launches for n, spec in S.KERNELS.items()}}))
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def archive_2rank_path(seed: int):
+    """``scan_archive_multiprocess_reader`` in two ranks (subprocesses
+    joined by gloo on this host), both deciding on this card: every
+    rank's segments and counts equal the NumPy oracle's over the whole
+    seeded stream.  Rank 1 has fewer chunks than rank 0, so it must join
+    dispatches with no frames of its own (fewer launches than
+    dispatches).  The ranks' launch counts come back with their
+    results."""
+    truth = archive_truth(seed, "bits", ARCHIVE_BITS_SEC)
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def run() -> dict:
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(_free_port()), WORLD_SIZE="2")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", RANK_SCRIPT, str(seed)], cwd=here,
+            env=dict(env, RANK=str(r), LOCAL_RANK=str(r)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for r in range(2)]
+        try:
+            outs = [p.communicate(timeout=RANK_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        wall = time.perf_counter() - t0
+        for p, (_, err) in zip(procs, outs):
+            if p.returncode:
+                raise AssertionError(f"archive rank exited {p.returncode}: "
+                                     f"{err[-2000:]}")
+        results = [json.loads(out.strip().splitlines()[-1])
+                   for out, _ in outs]
+        launches = {name: sum(r["launches"][name] for r in results)
+                    for name in KERNELS}
+        n = int(ARCHIVE_BITS_SEC * FPS)
+        same = all(
+            [tuple(x) for x in r["segments"]] == truth["segments"]
+            and r["stats"]["motion_frames"] == truth["motion_frames"]
+            and r["stats"]["frames_scanned"] == n
+            for r in results)
+        dispatches = results[0]["stats"]["dispatches"]
+        per_rank = [r["launches"]["word_cluster_counts"] for r in results]
+        log(f"e2e archive bits, 2 ranks (gloo) on "
+            f"{[r['device'] for r in results]}, "
+            f"{ARCHIVE_2RANK_CHUNK_SEC:g} s chunks: "
+            f"{[r['stats']['frames_scanned'] for r in results]} frames, "
+            f"{dispatches} dispatches a rank, word_cluster launches a rank "
+            f"{per_rank}; segments identical to the oracle on every rank: "
+            f"{same}; wall {wall * 1e3:.3f} ms (both processes' start "
+            f"included)")
+        if not same:
+            raise AssertionError(f"archive 2 ranks: {results} != {truth}")
+        if min(per_rank) >= dispatches:
+            raise AssertionError(f"archive 2 ranks: no rank joined a "
+                                 f"dispatch without frames ({per_rank} "
+                                 f"launches, {dispatches} dispatches)")
+        return {"wall_ms": wall * 1e3, "child_launches": launches}
+
+    return run
+
+
+def archive_dispatch_times(seed: int, card: str) -> dict:
+    """One archive dispatch's parts on the card at the archive paths'
+    shapes (after the counted runs, so not counted): the H2D copy of its
+    batch from pinned memory and its kernels (CUDA events, the mean over
+    repeated calls on one device-resident batch), and the whole sharded
+    step call (host clock, to the decisions back on the host)."""
+    from mvtrim_tpu_torch.parallel import mesh as mesh_ops
+
+    cfg = Config()
+    geom = GridGeometry.build(1920, 1080, cfg)
+    mesh = mesh_ops.build_mesh()
+    rows = min(ARCHIVE_FPD, (256 << 20) // (1920 * 1080))
+    cases = {
+        "bits": (bits_data(seed)[:ARCHIVE_FPD],
+                 lambda t: cluster_ops.cluster_bits_op(
+                     t, geom, cfg.clusters_needed)[0],
+                 mesh_ops.sharded_bits_scan_step(geom, cfg, mesh),
+                 lambda x: (x,)),
+        "sad": (LumaClip(seed, 1920, 1080).frames(0, rows + 1),
+                lambda t: sad_ops.sad_op(
+                    t, geom, sad_threshold=cfg.sad_threshold,
+                    block_size=cfg.block_size,
+                    clusters_needed=cfg.clusters_needed)[0],
+                mesh_ops.sharded_sad_scan_step(geom, cfg, mesh),
+                lambda x: (x, np.ones(len(x) - 1, bool)))}
+    out = {}
+    for payload, (batch, kernels, step, args) in cases.items():
+        pinned = torch.from_numpy(batch).pin_memory()
+        dst = torch.empty(pinned.shape, dtype=pinned.dtype, device="cuda")
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        dst.copy_(pinned, non_blocking=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(8):
+            dst.copy_(pinned, non_blocking=True)
+        stop.record()
+        torch.cuda.synchronize()
+        h2d_ms = start.elapsed_time(stop) / 8
+        kernel_ms, _ = _time(kernels, [dst], 32)
+        for _ in range(2):
+            step(*args(batch))
+        t0 = time.perf_counter()
+        for _ in range(8):
+            step(*args(batch))
+        step_ms = (time.perf_counter() - t0) / 8 * 1e3
+        out[payload] = {"h2d_ms": h2d_ms, "kernel_ms": kernel_ms,
+                        "step_ms": step_ms}
+        log(f"archive {payload} dispatch of {len(batch)} rows "
+            f"({batch.nbytes / 1e6:.3f} MB) on {card}: H2D from pinned "
+            f"memory {h2d_ms * 1e3:.3f} us, kernels (event) "
+            f"{kernel_ms * 1e3:.3f} us, the whole sharded step call "
+            f"{step_ms * 1e3:.3f} us (host clock)")
+        del pinned, dst
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_doctor(have_native: bool) -> None:
+    """tools.doctor's checks: its report on lines of their own; every CUDA
+    check must pass, and without the native library libav must be a failed
+    check (not a crash)."""
+    from mvtrim_tpu_torch.tools import doctor
+
+    t0 = time.perf_counter()
+    results = doctor.run_checks()
+    for line in doctor.report(results).splitlines():
+        if line:
+            log(f"doctor: {line}")
+    log(f"doctor: {time.perf_counter() - t0:.3f} s")
+    status = {r["name"]: r["status"] for r in results}
+    if "end-to-end (auto)" not in status:
+        raise AssertionError(f"doctor: no end-to-end check on the card: "
+                             f"{sorted(status)}")
+    for name in ("cuda-devices", "nvcc", "kernel-library", "device-mesh"):
+        if status[name] != "ok":
+            raise AssertionError(f"doctor: {name} is {status[name]}")
+    if not have_native and status["libav"] != "fail":
+        raise AssertionError("doctor: libav did not fail without it")
+
+
 def counted(run) -> dict:
     """Run one path with every launch count set to 0 just before it;
-    the counts just after."""
+    the counts just after, with those of the processes it started."""
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
-    run()
-    return {name: spec[0].launches for name, spec in KERNELS.items()}
+    out = run() or {}
+    counts = {name: spec[0].launches for name, spec in KERNELS.items()}
+    for name, n in out.get("child_launches", {}).items():
+        counts[name] += n
+    return counts
 
 
 def phase_main_paths(seed: int, have_native: bool) -> dict:
     """Every ported path, each counted on its own: path -> launches."""
     launches = {}
-    if have_native:
-        with tempfile.TemporaryDirectory() as workdir:
+    with tempfile.TemporaryDirectory() as workdir:
+        if have_native:
             clip = os.path.join(workdir, "cam1080.mp4")
             t0 = time.perf_counter()
             native.synthesize(clip, width=1920, height=1080, fps=FPS,
@@ -1182,22 +1682,31 @@ def phase_main_paths(seed: int, have_native: bool) -> dict:
             log(f"synthesized {clip} in {time.perf_counter() - t0:.3f} s")
             refs = {name: clip_run(clip, workdir, name, env)
                     for name, env in CLIP_REFS.items()}
-            for name in CLIP_PATHS:
-                launches[name] = counted(clip_path(clip, workdir, name,
-                                                   refs))
+            runs = {name: clip_path(clip, workdir, name, refs)
+                    for name in CLIP_PATHS}
+            readers = {kind: (functools.partial(native.VideoReader, clip),
+                              "clip") for kind in ("grids", "mv_raw", "sad")}
+        else:
+            runs = {p: mv_path(seed, p) for p in ("bits", "words", "grids")}
+            runs["mv_raw"] = mv_raw_path(seed)
+            runs["sad"] = sad_path(seed)
+            readers = {}
             for kind in ("grids", "mv_raw", "sad"):
-                launches[f"tune_{kind}"] = counted(tune_path(
-                    functools.partial(native.VideoReader, clip), kind,
-                    "clip"))
-    else:
-        runs = {p: mv_path(seed, p) for p in ("bits", "words", "grids")}
-        runs["mv_raw"] = mv_raw_path(seed)
-        runs["sad"] = sad_path(seed)
-        for kind in ("grids", "mv_raw", "sad"):
-            seconds = TUNE_SAD_SEC if kind == "sad" else CLIP_SEC
-            runs[f"tune_{kind}"] = tune_path(
-                functools.partial(SeededReader, seed, seconds), kind,
-                f"seeded 1080p {seconds:g} s")
+                seconds = TUNE_SAD_SEC if kind == "sad" else TUNE_MV_SEC
+                readers[kind] = (functools.partial(SeededReader, seed,
+                                                   seconds),
+                                 f"seeded 1080p {seconds:g} s")
+        for kind, (opener, label) in readers.items():
+            refs = tune_refs(opener, kind)
+            runs[f"tune_{kind}"] = tune_path(opener, kind, label, refs)
+            if kind != "mv_raw":
+                runs[f"tune_{kind}_mesh"] = tune_path(opener, kind, label,
+                                                      refs, mesh=True)
+        # over the stand-in reader whether or not libav loads
+        runs["mv_raw_overflow"] = mv_raw_overflow_path(seed)
+        runs["archive_bits"] = archive_path(seed, "bits")
+        runs["archive_sad"] = archive_path(seed, "sad")
+        runs["archive_bits_2rank"] = archive_2rank_path(seed)
         for name, run in runs.items():
             launches[name] = counted(run)
     for path, names in PATH_KERNELS.items():
@@ -1851,7 +2360,9 @@ def main() -> int:
              "mv_cluster_counts": phase_correctness_mv(args.seed)}
     log(f"phases 1-3 done at {time.perf_counter() - t_start:.3f} s")
 
+    phase_doctor(have_native)
     launches = phase_main_paths(args.seed, have_native)
+    archive_dispatch_times(args.seed, card)
     log(f"phase 4 done at {time.perf_counter() - t_start:.3f} s")
 
     times = phase_timing(rng, args.seed, card)

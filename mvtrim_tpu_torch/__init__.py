@@ -4,9 +4,9 @@ The port of ``mvtrim_tpu`` to an NVIDIA H100: the MV scan path over the
 bits, words, grids and raw-MV payloads (activity masks, vote grids or the
 codec's motion vectors -> cluster kernels -> segmentation -> lossless
 cut), the pixel-domain SAD scan of MV-less video (luma -> block-SAD and
-cluster-map kernels) and the tuning sweeps, through the same entry points
-(``python -m mvtrim_tpu_torch <in> <out>``, batch and watch mode, and
-``python -m mvtrim_tpu_torch.tools.tune``).
+cluster-map kernels), the sharded archive scan and the tuning sweeps,
+through the same entry points (``python -m mvtrim_tpu_torch <in> <out>``,
+batch, watch and archive mode, and ``python -m mvtrim_tpu_torch.tools.*``).
 
 The package imports nothing of ``mvtrim_tpu``.  Its framework-free layers
 are copies of that package's, at the same relative paths, so one
@@ -28,7 +28,10 @@ What runs on the device is the port's own:
              luma
   pipeline/  single-video pipeline (probe -> scan -> segment -> cut)
   batch/     multi-video scheduler and watch mode
-  tools/     tune: detector configs swept over one decode
+  parallel/  device mesh, sharded scan steps, the archive scan with
+             chunk-granular checkpoints, multi-process runs (gloo)
+  tools/     tune (detector configs swept over one decode), doctor,
+             device_probe, extract_mvs, motion_scalar, heatmap
 """
 
 from .core import Config, GridGeometry, ScanTask, TimeSegment

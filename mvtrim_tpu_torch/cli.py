@@ -46,13 +46,42 @@ def main(argv: list[str] | None = None) -> int:
     log.info(f"Input: {input_arg}")
     log.info(f"Output: {output_arg}")
     if cfg.archive_mode:
-        log.error("MVT_ARCHIVE=1 (the sharded archive scan) is not ported "
-                  "to mvtrim_tpu_torch yet: ROADMAP.md queue 1 item 11")
-        return 1
+        return run_archive(input_arg, output_arg, cfg)
     pipeline = ProcessingPipeline(
         input_arg, output_arg, stream_id=-1,
         num_threads=cfg.threads_per_stream, cfg=cfg)
     return pipeline.run()
+
+
+def run_archive(input_arg: str, output_arg: str, cfg: Config) -> int:
+    """MVT_ARCHIVE=1: shard one long video's scan over the device mesh
+    (parallel/archive.py), then apply the usual cut decision."""
+    from .core import oracle
+    from .cut.executor import execute_cut
+    from .parallel.archive import scan_archive
+
+    log.phase("Archive Scan (mesh-sharded)...")
+    try:
+        segments, duration, stats = scan_archive(
+            input_arg, cfg, decode_workers=cfg.decode_workers,
+            checkpoint=cfg.checkpoint_path or None)
+    except (OSError, RuntimeError) as e:
+        log.error(f"Archive scan failed: {e}")
+        return 1
+    if not segments:
+        log.warn("No motion found.")
+        return 0
+    time_removed, saved_pct = oracle.savings(segments, duration)
+    is_cut, out_segments = oracle.decide_cut(segments, duration,
+                                             cfg.min_savings_pct)
+    if not is_cut:
+        log.warn(f"Savings too low ({int(saved_pct)}%). Min required: "
+                 f"{int(cfg.min_savings_pct)}%. Copying full stream.")
+    log.phase("Cutting...")
+    rc = execute_cut(input_arg, output_arg, out_segments, -1, cfg)
+    if rc == 0:  # don't claim savings for a cut that produced no output
+        log.print_cut_summary(duration, time_removed, saved_pct)
+    return rc
 
 
 if __name__ == "__main__":

@@ -148,25 +148,16 @@ class MVClusterDetector:
             motion = self.decide_raw_mvs_on_host(mvs, counts)
             return lambda: motion
         bound = mv_vote.threshold_bound(self.cfg.mv_threshold_sq)
-        db = self.device_batch
-
-        def rows(lo, hi):
-            # pad each dispatch to a power-of-two bucket in [256,
-            # device_batch], as the JAX detector does (zero-count pad
-            # frames decide False and are sliced off in resolve)
-            bucket = min(db, max(256, 1 << (hi - lo - 1).bit_length()))
-            batch = np.zeros((bucket,) + mvs.shape[1:], np.int16)
-            batch[:hi - lo] = mvs[lo:hi]
-            cnts = np.zeros((bucket,), np.int32)
-            cnts[:hi - lo] = counts[lo:hi]
-            return batch, cnts
 
         def op(fields, cnts):
             return mv_vote.mv_cluster_op(
                 fields, cnts, self.geom, bound, self.cfg.vectors_needed,
                 self.cfg.clusters_needed, self.cfg.block_shift)[1]
 
-        return self._dispatch(rows, n, op)
+        # the kernel takes B and M at run time: each dispatch sends exactly
+        # its frames, at whatever capacity M the scan was made with
+        return self._dispatch(lambda lo, hi: (mvs[lo:hi], counts[lo:hi]), n,
+                              op)
 
     def scan_raw_mvs(self, mvs: np.ndarray, counts: np.ndarray) -> np.ndarray:
         """Host entry for the raw-MV path (see scan_raw_mvs_async)."""
@@ -215,7 +206,7 @@ class MVClusterDetector:
         """The one batch/dispatch/resolve loop, shared by the bits, words,
         grids and raw-MV inputs.  ``get_rows(lo, hi)`` supplies each batch
         as a numpy array, or a tuple of them, and ``op(*tensors) -> motion
-        bool`` decides it; rows past hi - lo are padding and dropped.
+        bool`` decides it.
 
         On CUDA each batch is staged in pinned host memory, copied to the
         card without blocking, decided by the kernel, and its motion is
@@ -245,7 +236,7 @@ class MVClusterDetector:
             for lo, hi, motion, pending in futures:
                 if pending is not None:
                     pending[0].synchronize()
-                out[lo:hi] = motion.numpy()[:hi - lo]
+                out[lo:hi] = motion.numpy()
             return out
 
         return resolve

@@ -29,7 +29,6 @@ from __future__ import annotations
 import functools
 import math
 
-import numpy as np
 import torch
 
 from ..core.types import GridGeometry
@@ -184,66 +183,3 @@ def mv_cluster_op(mvs: torch.Tensor, counts: torch.Tensor,
 
 mv_cluster_op.launches = 0
 
-
-def host_expected_clusters(dst_x, dst_y, src_x, src_y, counts,
-                           geom: GridGeometry, *, threshold_sq: float,
-                           block_shift: int, vectors_needed: int):
-    """Vectorized NumPy restatement of the keep mask + vote scatter +
-    cluster count, for audits.
-
-    Returns (kept_counts int64 [B], cluster_counts int64 [B]).  Kept from
-    the JAX package as it is: its magnitude is int64, not wrapped, so it
-    agrees with the kernels only where no |d|^2 sum passes 2^31.
-    """
-    from ..core.oracle import count_clusters_batch
-
-    dst_x = np.asarray(dst_x)
-    dst_y = np.asarray(dst_y)
-    b, m = dst_x.shape
-    bound = threshold_bound(threshold_sq)
-    dx = dst_x.astype(np.int64) - np.asarray(src_x)
-    dy = dst_y.astype(np.int64) - np.asarray(src_y)
-    mag = dx * dx + dy * dy
-    gx = dst_x >> block_shift
-    gy = dst_y >> block_shift
-    idx_ok = np.arange(m)[None, :] < np.asarray(counts)[:, None]
-    keep = (idx_ok & (mag >= bound) & (gx >= 0) & (gx < geom.gw)
-            & (gy >= geom.y_min) & (gy < geom.y_max))
-    kept_counts = keep.sum(axis=1).astype(np.int64)
-    flat = (np.arange(b)[:, None] * (geom.gh * geom.gw)
-            + gy * geom.gw + gx)
-    votes = np.bincount(flat[keep].ravel(),
-                        minlength=b * geom.gh * geom.gw
-                        ).reshape(b, geom.gh, geom.gw)
-    votes = np.minimum(votes, 255)  # saturation is decision-preserving
-    clusters = count_clusters_batch(
-        votes, vectors_needed=vectors_needed,
-        y_min=geom.y_min, y_max=geom.y_max)
-    return kept_counts, clusters.astype(np.int64)
-
-
-def pad_mvs(mv_list, m: int):
-    """Host helper: list of [n_i, 4] int arrays -> ([B, M] x4 int32, counts).
-
-    Rows are (dst_x, dst_y, src_x, src_y).  Frames with more than M MVs are
-    truncated with a flag so callers can re-run them through the oracle.
-    """
-    b = len(mv_list)
-    dst_x = np.zeros((b, m), np.int32)
-    dst_y = np.zeros((b, m), np.int32)
-    src_x = np.zeros((b, m), np.int32)
-    src_y = np.zeros((b, m), np.int32)
-    counts = np.zeros((b,), np.int32)
-    overflow = np.zeros((b,), bool)
-    for i, mvs in enumerate(mv_list):
-        mvs = np.asarray(mvs, np.int32).reshape(-1, 4)
-        n = mvs.shape[0]
-        if n > m:
-            overflow[i] = True
-            n = m
-        counts[i] = n
-        dst_x[i, :n] = mvs[:n, 0]
-        dst_y[i, :n] = mvs[:n, 1]
-        src_x[i, :n] = mvs[:n, 2]
-        src_y[i, :n] = mvs[:n, 3]
-    return dst_x, dst_y, src_x, src_y, counts, overflow

@@ -20,6 +20,7 @@ accounting mirrors the reference's timing tree (pipeline.cpp:274-292).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 import queue
@@ -82,7 +83,9 @@ class ProcessingPipeline:
     When ``cut_queue`` is provided (batch mode) the cut job is pushed for
     deferred execution instead of running inline (pipeline.cpp:358-404);
     ``stream_id >= 0`` prefixes log lines; ``device`` pins this stream's
-    analysis to one card.
+    analysis to one card.  ``open_reader(mode)`` opens each decode
+    worker's reader (``native.VideoReader`` of the input; a stand-in with
+    its scan methods drives the scan where no decoder is present).
     """
 
     def __init__(self, input_path: str, output_path: str,
@@ -97,6 +100,7 @@ class ProcessingPipeline:
         self.cfg = cfg or Config.from_env()
         self.cut_queue = cut_queue
         self.device = device
+        self.open_reader = functools.partial(native.VideoReader, input_path)
         self.duration = 0.0
         self.time_removed = 0.0
         self.saved_pct = 0.0
@@ -348,20 +352,8 @@ class ProcessingPipeline:
             detector.scan_words(
                 np.zeros((1, word_geometry(geom)[1]), np.int32))
         elif scan_input == "mv_raw":
-            # both dispatch buckets frames will land in: the small one
-            # (tail chunks) and the one a typical chunk pads to, estimated
-            # as the workers produce it (a chunk's analyzed frames are
-            # decoded/skip, capped at max_frames a call)
             detector.scan_raw_mvs(np.zeros((1, cfg.mv_capacity, 4), np.int16),
                                   np.zeros((1,), np.int32))
-            expect = min(max_frames, int(math.ceil(math.ceil(
-                cfg.chunk_duration_sec * max(fps, 1.0))
-                / max(1, frame_skip))) + 64)
-            n_warm = min(detector.device_batch, max(256, expect))
-            if n_warm > 256:
-                detector.scan_raw_mvs(
-                    np.zeros((n_warm, cfg.mv_capacity, 4), np.int16),
-                    np.zeros((n_warm,), np.int32))
         else:
             detector.scan_votes(np.zeros((1, geom.gh, geom.gw), np.uint8))
         warmup_us = (time.perf_counter_ns() - warm_t0) // 1000
@@ -399,7 +391,7 @@ class ProcessingPipeline:
         def worker(widx: int) -> None:
             try:
                 t0 = time.perf_counter_ns()
-                reader = native.VideoReader(self.input_path, reader_mode)
+                reader = self.open_reader(reader_mode)
                 init_us[widx] = (time.perf_counter_ns() - t0) // 1000
                 scan = getattr(reader, "scan_mvs" if scan_input == "mv_raw"
                                else f"scan_{scan_input}")
@@ -438,8 +430,8 @@ class ProcessingPipeline:
                                 # capacity overflow: restart the WHOLE
                                 # chunk from a fresh seek at a capacity
                                 # that fits every frame, so the decision is
-                                # over the complete MV lists (the feeder
-                                # decides them on the host oracle).  Decode
+                                # over the complete MV lists (the detector
+                                # takes them at that capacity).  Decode
                                 # is deterministic, so the restart replays
                                 # the frames already queued from this
                                 # chunk: drop those duplicates, and rewind
@@ -453,9 +445,7 @@ class ProcessingPipeline:
                                 continue
                             k = min(skip_dup, raw_n)
                             skip_dup -= k
-                            tag = "mv" if cap == cfg.mv_capacity \
-                                else "mv_host"
-                            item = ((tag, mvs[k:], counts[k:]), pts[k:])
+                            item = ((mvs[k:], counts[k:]), pts[k:])
                         else:
                             data, pts = scan(
                                 task.start, task.end, **scan_args,
@@ -499,13 +489,7 @@ class ProcessingPipeline:
                 return lambda: motion
         elif scan_input == "mv_raw":
             def dispatch(data):
-                tag, mvs, counts = data
-                if tag == "mv":
-                    return detector.scan_raw_mvs_async(mvs, counts)
-                # overflow re-scan: decided on the host oracle over the
-                # complete (re-decoded) MV lists — exact, and rare
-                motion = detector.decide_raw_mvs_on_host(mvs, counts)
-                return lambda: motion
+                return detector.scan_raw_mvs_async(*data)
         else:
             dispatch = {"bits": detector.scan_bits_async,
                         "words": detector.scan_words_async,

@@ -18,18 +18,21 @@ segmentation call per threshold (ops/segmentation.py, float32); without it
 each batch's motion comes back and the float64 oracle segments it, as a
 pipeline run at that config would.  The device is the card
 (``MVT_SCAN_BACKEND=auto``) unless the backend asks for the CPU build
-(``torch`` or ``oracle``).
+(``torch`` or ``oracle``).  The grids and SAD routes score through a
+device mesh (``parallel/mesh.py``): one device unless ``--mesh N
+[--mesh-sweep S]`` asks for N, frames over its 'data' axis, configs over
+its 'sweep' axis; the rows are the same.
 
 Usage:
   python -m mvtrim_tpu_torch.tools.tune input.mp4 \\
       [--thresholds 4,16,64] [--vectors 1,2,4] [--clusters 1,2,4] \\
-      [--scan-input grids|mv_raw|sad] [--device-stats]
+      [--scan-input grids|mv_raw|sad] [--device-stats] \\
+      [--mesh N [--mesh-sweep S]]
 """
 
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import math
 import sys
@@ -45,45 +48,14 @@ from ..models.mv_detector import resolve_backend
 from ..ops.mv_vote import threshold_bound
 from ..ops.sad import sad_threshold_sum
 from ..ops.segmentation import segment_op
-from ..ops.sweep import mv_sweep_op, sad_sweep_op, vote_sweep_op
+from ..ops.sweep import mv_sweep_op
+from ..parallel.mesh import (Staging, build_mesh, sharded_sad_sweep_step,
+                             sharded_scan_step)
 
 
 def _device(cfg: Config) -> torch.device:
     backend = resolve_backend(cfg.scan_backend)
     return torch.device("cuda" if backend == "cuda" else "cpu")
-
-
-class Staging:
-    """numpy arrays -> tensors on ``device``, one upload per batch.
-
-    On the card each array goes through a pinned buffer of its own (a
-    copy, so the caller may reuse its arrays at once), copied without
-    blocking.  A staging buffer must not be reused while a copy from it
-    may still run, so each upload's buffers are held behind an event and
-    dropped once it has passed; past ``depth`` uploads in flight the
-    oldest is waited on.  So pinned memory is bounded by ``depth``
-    batches, not by the clip's length.  On the CPU the ops run at once on
-    the arrays themselves.
-    """
-
-    def __init__(self, device: torch.device, depth: int = 2):
-        self.device = device
-        self.depth = depth
-        self.in_flight: collections.deque = collections.deque()
-
-    def upload(self, arrays) -> list[torch.Tensor]:
-        if self.device.type == "cpu":
-            return [torch.from_numpy(a) for a in arrays]
-        while self.in_flight and (len(self.in_flight) >= self.depth
-                                  or self.in_flight[0][0].query()):
-            done, _ = self.in_flight.popleft()
-            done.synchronize()
-        pinned = [torch.from_numpy(a).pin_memory() for a in arrays]
-        out = [p.to(self.device, non_blocking=True) for p in pinned]
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
-        self.in_flight.append((done, pinned))
-        return out
 
 
 def sweep(input_path: str, thresholds, vectors, clusters,
@@ -96,7 +68,7 @@ def sweep(input_path: str, thresholds, vectors, clusters,
 def sweep_reader(reader, thresholds, vectors, clusters, *,
                  cfg: Config | None = None, batch_frames: int = 512,
                  device_stats: bool = False,
-                 scan_input: str = "grids") -> list[dict]:
+                 scan_input: str = "grids", mesh=None) -> list[dict]:
     """Score every config combination over one decode of ``reader`` (an
     open ``native.VideoReader``, or anything with its ``duration``,
     ``fps``, ``width``, ``height`` and scan methods).
@@ -112,6 +84,12 @@ def sweep_reader(reader, thresholds, vectors, clusters, *,
     ``scan_input`` 'grids' scatters one vote grid per threshold during
     decode; 'mv_raw' exports raw MV fields once and sweeps the magnitude
     thresholds as device data.  Identical decisions either way.
+
+    The grids route scores on ``mesh`` (``parallel.mesh.build_mesh``;
+    default one device of the backend): each batch's frames split over
+    'data', the (vectors, clusters) pairs over 'sweep'
+    (``sharded_scan_step``); the decisions are the single-device ones.
+    The mv_raw route takes no mesh.
     """
     cfg = cfg or Config.from_env()
     device = _device(cfg)
@@ -140,13 +118,18 @@ def sweep_reader(reader, thresholds, vectors, clusters, *,
     # device path: per-threshold lists of motion [n, K] on the device
     dev_motion: list[list] = [[] for _ in thresholds]
     all_pts: list[np.ndarray] = []
-    staging = Staging(device)
 
     if scan_input == "mv_raw":
+        if mesh is not None:
+            raise ValueError("--mesh supports the grids scan input only")
         _sweep_mv_raw(reader, cfg, geom, thresholds, vc_pairs, frame_skip,
                       batch_frames, device_stats, motion_ts, dev_motion,
-                      all_pts, staging)
+                      all_pts, Staging(device))
     else:
+        mesh = mesh or build_mesh(1, device=device.type)
+        device = mesh.devices[0, 0]   # where the step leaves its motion
+        staging = Staging(device)
+        step = sharded_scan_step(geom, cfg, mesh, sweep_clusters=True)
         cap = int(math.ceil(cfg.chunk_duration_sec * max(fps, 1.0))) + 64
         cur = native.ChunkScanCursor(duration, cfg.chunk_duration_sec, cap)
         while cur.more():
@@ -167,16 +150,13 @@ def sweep_reader(reader, thresholds, vectors, clusters, *,
                 if vec0.any():
                     # reference `!sd -> false` for the vec==0 columns
                     # (zero grids cannot represent "no side data")
-                    allow = has_mv[lo:hi, None] | ~vec0[None, :]
+                    (allow,) = staging.upload(
+                        [has_mv[lo:hi, None] | ~vec0[None, :]])
                 for ti in range(len(thresholds)):
-                    arrays = [np.ascontiguousarray(grids[lo:hi, ti])]
+                    motion = step(grids[lo:hi, ti], vec_needs,
+                                  clust_needs)[0]
                     if allow is not None:
-                        arrays.append(allow)
-                    up = staging.upload(arrays)
-                    motion = vote_sweep_op(up[0], geom, vec_needs,
-                                           clust_needs)
-                    if allow is not None:
-                        motion = motion & up[1]
+                        motion = motion & allow
                     if device_stats:
                         dev_motion[ti].append(motion)
                     else:
@@ -231,7 +211,8 @@ def _device_stats_rows(thresholds, nvc, dev_motion, all_pts, duration,
         if not dev_motion[ti]:
             count = kept = frames = np.zeros((nvc,))
         else:
-            motion = torch.cat(dev_motion[ti], dim=0)         # [N, K]
+            # [N, K], on the mesh's first device
+            motion = torch.cat(dev_motion[ti], dim=0).to(device)
             _, _, count, kept = segment_op(
                 ts, motion, duration, max_segments=max_segments,
                 max_gap_sec=cfg.max_gap_sec, padding_sec=cfg.padding_sec)
@@ -267,7 +248,7 @@ def sweep_sad(input_path: str, thresholds, clusters, **kw) -> list[dict]:
 
 def sweep_sad_reader(reader, thresholds, clusters, *,
                      cfg: Config | None = None, batch_frames: int = 512,
-                     device_stats: bool = False) -> list[dict]:
+                     device_stats: bool = False, mesh=None) -> list[dict]:
     """Score K (sad_threshold, clusters_needed) configs over ONE luma
     decode of ``reader`` — the pixel-domain analog of sweep_reader().
 
@@ -276,6 +257,11 @@ def sweep_sad_reader(reader, thresholds, clusters, *,
     threaded across cap-resumed sub-scans, and the SAD bound is the same
     integer.  ``thresholds`` are ``sad_threshold`` values (mean abs diff
     per pixel); a block is active iff its SAD sum clears the bound.
+
+    The scoring runs on ``mesh`` like ``sweep_reader``'s: each window's
+    frames split over 'data', each shard with the frame before it as its
+    carry, the (threshold, clusters) configs over 'sweep'
+    (``sharded_sad_sweep_step``).
     """
     cfg = cfg or Config.from_env()
     device = _device(cfg)
@@ -291,13 +277,16 @@ def sweep_sad_reader(reader, thresholds, clusters, *,
     duration, fps = reader.duration, reader.fps
     geom = GridGeometry.build(reader.width, reader.height, cfg)
     frame_skip = cfg.frame_skip(fps)
+    mesh = mesh or build_mesh(1, device=device.type)
+    device = mesh.devices[0, 0]   # where the step leaves its motion
+    staging = Staging(device)
+    step = sharded_sad_sweep_step(geom, cfg, mesh)
 
     motion_ts: dict[tuple[int, int], list[float]] = {
         (ti, vi): [] for ti in range(len(thresholds))
         for vi in range(nvc)}
     dev_motion: list[list] = [[] for _ in thresholds]
     all_pts: list[np.ndarray] = []
-    staging = Staging(device)
 
     # luma frames are H*W bytes: cap the per-call decode like the
     # pipeline's SAD branch
@@ -336,15 +325,11 @@ def sweep_sad_reader(reader, thresholds, clusters, *,
             else:
                 prev = data[0] if mask_first else luma_carry
             window = np.concatenate([prev[None], data[lo:hi]])
-            arrays = [window]
+            motion = step(window, bounds_k, clus_k)
             if mask_first:
                 allow = np.ones((n, len(clus_k)), bool)
                 allow[0] = False
-                arrays.append(allow)
-            up = staging.upload(arrays)
-            motion = sad_sweep_op(up[0], geom, bs, bounds_k, clus_k)
-            if mask_first:
-                motion = motion & up[1]
+                motion = motion & staging.upload([allow])[0]
             if device_stats:
                 for ti in range(len(thresholds)):
                     dev_motion[ti].append(motion[:, ti * nvc:(ti + 1) * nvc])
@@ -457,26 +442,36 @@ def main(argv: list[str] | None = None) -> int:
                              "the pixel-domain SAD path (sweeps "
                              "sad_threshold x clusters_needed)")
     parser.add_argument("--mesh", type=int, default=0, metavar="N",
-                        help="not available in this package (a sweep "
-                             "sharded over N devices)")
+                        help="shard the sweep over an N-device mesh: "
+                             "frames over 'data', configs over 'sweep' "
+                             "(grids and sad inputs; mv_raw is "
+                             "single-device)")
     parser.add_argument("--mesh-sweep", type=int, default=0, metavar="S",
-                        help="not available in this package")
+                        help="sweep-axis size of the mesh (default: the "
+                             "largest divisor of N not exceeding the "
+                             "config-pair count)")
     args = parser.parse_args(argv)
-    if args.mesh or args.mesh_sweep:
-        print("tune: --mesh/--mesh-sweep (a sweep sharded over several "
-              "devices) is not ported to mvtrim_tpu_torch: ROADMAP.md "
-              "queue 1 item 11", file=sys.stderr)
-        return 1
 
     clusters = [int(x) for x in args.clusters.split(",")]
+
+    def make_mesh(n_configs):
+        if not args.mesh:
+            return None
+        s = args.mesh_sweep or max(
+            d for d in range(1, args.mesh + 1)
+            if args.mesh % d == 0 and d <= max(1, n_configs))
+        return build_mesh(args.mesh, sweep=s)
     if args.scan_input == "sad":
         if args.vectors is not None:
             parser.error("--vectors does not apply to --scan-input sad "
                          "(the SAD path has no per-block vote counts)")
         thresholds = [float(x) for x in
                       (args.thresholds or "4,12,30").split(",")]
+        # the SAD route flattens (threshold x clusters) onto one config
+        # axis, so the whole grid shards over 'sweep'
         results = sweep_sad(args.input, thresholds, clusters,
-                            device_stats=args.device_stats)
+                            device_stats=args.device_stats,
+                            mesh=make_mesh(len(thresholds) * len(clusters)))
         print(json.dumps(results, indent=2))
         return 0
 
@@ -485,7 +480,8 @@ def main(argv: list[str] | None = None) -> int:
     vectors = [int(x) for x in (args.vectors or "1,2,4").split(",")]
     results = sweep(args.input, thresholds, vectors, clusters,
                     device_stats=args.device_stats,
-                    scan_input=args.scan_input)
+                    scan_input=args.scan_input,
+                    mesh=make_mesh(len(vectors) * len(clusters)))
     print(json.dumps(results, indent=2))
     return 0
 

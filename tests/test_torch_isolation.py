@@ -4,7 +4,8 @@ Two checks.  An AST scan of every module of the port and of
 ``chip_smoke.py`` finds no import of ``mvtrim_tpu`` or ``jax`` and no
 relative import that climbs out of the package.  A fresh interpreter
 imports every module of the port, runs ``python -m mvtrim_tpu_torch`` on a
-synthesized clip and the tune tool on it, and finds neither package in
+synthesized clip, its archive scan (``MVT_ARCHIVE=1``) and the tune tool
+on it (also with ``--mesh``), and finds neither package in
 ``sys.modules`` afterwards (``mvtrim_tpu/__init__.py`` alone writes JAX
 cache variables into the environment, so even a jax-free module of that
 package must not load).
@@ -80,9 +81,16 @@ def test_nothing_of_jax_loads(tmp_path):
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
+        "import os\n"
+        "from mvtrim_tpu_torch.cli import main\n"
         "from mvtrim_tpu_torch.tools import tune\n"
         f"assert tune.main([{clip!r}, '--thresholds', '16',"
         " '--vectors', '2', '--clusters', '2']) == 0\n"
+        f"assert tune.main([{clip!r}, '--mesh', '2', '--scan-input',"
+        " 'sad', '--thresholds', '12', '--clusters', '1,2']) == 0\n"
+        "os.environ['MVT_ARCHIVE'] = '1'\n"
+        f"assert main([{clip!r}, {str(tmp_path / 'arch.mp4')!r}]) == 0\n"
+        "del os.environ['MVT_ARCHIVE']\n"
         f"sys.argv = ['mvtrim_tpu_torch', {clip!r},"
         f" {str(tmp_path / 'out.mp4')!r}]\n"
         "try:\n"
@@ -100,4 +108,6 @@ def test_nothing_of_jax_loads(tmp_path):
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ISOLATED" in proc.stdout
+    assert "archive scan (bits)" in proc.stdout
     assert os.path.exists(tmp_path / "out.mp4")
+    assert os.path.exists(tmp_path / "arch.mp4")

@@ -4,11 +4,9 @@
 ``MVT_SCAN_BACKEND=torch``) must give the JAX mv_raw run's motion
 timestamps, savings and output bytes, and the port's own bits run's; also
 at ``MVT_MV_CAPACITY=16``, where every chunk overflows its capacity, is
-restarted at the next power of two and is decided on the host oracle
-(the ``mv_host`` frames).  Integer decisions: the tolerance is exact.
+restarted at the next power of two and is decided by the raw-MV op at
+that capacity.  Integer decisions: the tolerance is exact.
 """
-
-import math
 
 import pytest
 
@@ -18,6 +16,7 @@ from mvtrim_tpu_torch.cli import main as cli_main
 from mvtrim_tpu_torch.core import Config
 from mvtrim_tpu_torch.io import native
 from mvtrim_tpu_torch.models.mv_detector import MVClusterDetector
+from mvtrim_tpu_torch.ops import mv_vote as torch_mv
 from mvtrim_tpu_torch.pipeline.pipeline import ProcessingPipeline
 
 
@@ -75,42 +74,49 @@ def test_cli_matches_jax_and_the_bits_run(motion_clip, tmp_path,
 
 def test_overflow_restarts_the_chunk_on_the_host(motion_clip, tmp_path,
                                                  monkeypatch):
-    """At capacity 16 the worker restarts each chunk at a fitting
-    capacity, feeds it as mv_host (the oracle, not the op) and counts
-    every frame once."""
-    calls = {"device": 0, "host": 0}
-    real_async = MVClusterDetector.scan_raw_mvs_async
-    real_host = MVClusterDetector.decide_raw_mvs_on_host
+    """At capacity 16 the worker restarts each chunk from a fresh seek at
+    a fitting capacity, and the feeder hands the re-decoded chunk to
+    ``mv_cluster_op`` at that capacity (never to the host oracle): the
+    same decisions as the oracle backend, every frame counted once."""
+    shapes = []
+    real_op = torch_mv.mv_cluster_op
 
-    def dev(self, mvs, counts):
-        calls["device"] += len(counts)
-        return real_async(self, mvs, counts)
+    def spy(mvs, counts, *args, **kw):
+        shapes.append(tuple(mvs.shape))
+        assert (counts >= 0).all()
+        return real_op(mvs, counts, *args, **kw)
 
-    def host(self, mvs, counts):
-        calls["host"] += len(counts)
-        assert (counts >= 0).all() and mvs.shape[1] > 16
-        return real_host(self, mvs, counts)
+    def no_host(self, mvs, counts):
+        raise AssertionError("an overflow chunk was decided on the host")
 
-    monkeypatch.setattr(MVClusterDetector, "scan_raw_mvs_async", dev)
-    monkeypatch.setattr(MVClusterDetector, "decide_raw_mvs_on_host", host)
+    monkeypatch.setattr(torch_mv, "mv_cluster_op", spy)
+    monkeypatch.setattr(MVClusterDetector, "decide_raw_mvs_on_host",
+                        no_host)
     cfg = Config(scan_backend="torch", scan_input="mv_raw", mv_capacity=16,
                  chunk_duration_sec=7.0)
     pipe = ProcessingPipeline(motion_clip, str(tmp_path / "o.mp4"), cfg=cfg)
     pipe.duration, fps, w, h = probe(motion_clip)
     result = pipe._parallel_scan("mv", fps, w, h)
+    monkeypatch.undo()
     ref = ProcessingPipeline(motion_clip, str(tmp_path / "r.mp4"),
-                             cfg=Config(scan_backend="torch",
+                             cfg=Config(scan_backend="oracle",
+                                        scan_input="mv_raw",
                                         chunk_duration_sec=7.0))
     ref.duration = pipe.duration
     expect = ref._parallel_scan("mv", fps, w, h)
     assert sorted(result.motion_ts) == sorted(expect.motion_ts)
     assert result.frames_scanned == expect.frames_scanned
     assert result.frames_with_mvs == expect.frames_with_mvs
-    # the device saw only the warm-up's one zero frame
-    assert calls["host"] == result.frames_scanned and calls["device"] == 1
+    # the warm-up's one frame at M = 16, then every frame of the clip at
+    # the capacity its chunk was re-decoded at
+    assert shapes[0] == (1, 16, 4)
+    assert sum(s[0] for s in shapes[1:]) == result.frames_scanned
+    assert all(s[1] > 16 for s in shapes[1:])
 
 
 def test_warm_up_covers_both_buckets(motion_clip, tmp_path, monkeypatch):
+    """The warm-up is one frame: dispatches are not padded to buckets, so
+    there is no second shape to warm."""
     seen = []
     real = MVClusterDetector.scan_raw_mvs
 
@@ -123,9 +129,7 @@ def test_warm_up_covers_both_buckets(motion_clip, tmp_path, monkeypatch):
                  device_batch=1024)
     pipe = ProcessingPipeline(motion_clip, str(tmp_path / "o.mp4"), cfg=cfg)
     assert pipe.run() == 0
-    # the tail bucket, then the one a 30 s chunk fills (its frames + 64)
-    fps = probe(motion_clip)[1]
-    assert seen == [1, math.ceil(30 * fps) + 64]
+    assert seen == [1]
 
 
 def test_heatmap_is_skipped_with_a_warning(motion_clip, tmp_path, capsys):

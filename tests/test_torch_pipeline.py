@@ -2,8 +2,8 @@
 
 The port's plain PyTorch build (``scan_backend="torch"``) must reach the
 same motion timestamps and cut decision as the JAX pipeline (XLA build),
-for the bits, words and grids payloads; what the port does not cover yet
-must fail loudly.  The SAD scan has its own file, test_torch_sad.py.
+for the bits, words and grids payloads, and ``MVT_ARCHIVE=1`` the same
+output as the JAX CLI's archive scan.  The SAD scan has its own file, test_torch_sad.py.
 """
 
 import json
@@ -17,6 +17,7 @@ import time
 import pytest
 import torch
 
+from mvtrim_tpu.cli import main as jax_cli_main
 from mvtrim_tpu.core.config import Config as JaxConfig
 from mvtrim_tpu.pipeline.pipeline import ProcessingPipeline as JaxPipeline
 from mvtrim_tpu.utils.timing import TimingCollector as JaxTiming
@@ -255,11 +256,24 @@ class TestCLI:
         assert cli_main([motion_clip, out]) == 0
         assert os.path.exists(out)
 
-    def test_archive_mode_not_ported(self, motion_clip, tmp_path,
-                                     monkeypatch, capsys):
+    @pytest.mark.parametrize("pipeline", ["mv", "sad", "auto"])
+    def test_archive_mode_matches_jax_cli(self, motion_clip, tmp_path,
+                                          monkeypatch, capsys, pipeline):
+        """MVT_ARCHIVE=1 through both CLIs, payload bits (mv, auto) and
+        sad: the same segments, so the same output bytes."""
         monkeypatch.setenv("MVT_ARCHIVE", "1")
-        assert cli_main([motion_clip, str(tmp_path / "a.mp4")]) == 1
-        assert "queue 1 item 11" in capsys.readouterr().out
+        monkeypatch.setenv("MVT_PIPELINE", pipeline)
+        monkeypatch.setenv("MVT_SCAN_BACKEND", "torch")
+        ours = str(tmp_path / "ours.mp4")
+        assert cli_main([motion_clip, ours]) == 0
+        monkeypatch.delenv("MVT_SCAN_BACKEND")
+        theirs = str(tmp_path / "theirs.mp4")
+        assert jax_cli_main([motion_clip, theirs]) == 0
+        out = capsys.readouterr().out
+        payload = "sad" if pipeline == "sad" else "bits"
+        assert out.count(f"archive scan ({payload})") == 2
+        data = open(ours, "rb").read()
+        assert len(data) > 1000 and data == open(theirs, "rb").read()
 
     def test_empty_dir(self, tmp_path):
         d = tmp_path / "empty"

@@ -5,8 +5,9 @@ sweep ops exactly (integer decisions); its segmentation op must equal
 ``make_segment_op`` vmapped over the config columns: starts, ends and
 count exactly, kept seconds within rtol 1e-6 (float32 sums may be taken
 in another order).  ``tune``'s rows for the grids, mv_raw and SAD routes
-equal the JAX tool's, with and without ``--device-stats``; under it
-``saved_pct`` may differ by 0.01 (it is rounded from those f32 sums).
+equal the JAX tool's, with and without ``--device-stats`` and ``--mesh``;
+under ``--device-stats`` ``saved_pct`` may differ by 0.01 (it is rounded
+from those f32 sums).
 The ``cuda``-marked test holds the sweep ops on the card against the CPU
 (``python -m pytest -m cuda tests/test_torch_sweep.py``).
 """
@@ -190,10 +191,44 @@ def test_tune_main(clip, capsys, monkeypatch):
         torch_tune.main([clip, "--scan-input", "sad", "--vectors", "1"])
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "4"], ["--mesh-sweep", "2"]])
-def test_mesh_is_not_ported(clip, capsys, flag):
-    assert torch_tune.main([clip] + flag) != 0
-    assert "queue 1 item 11" in capsys.readouterr().err
+def _mesh_rows(main, clip, capsys, args):
+    assert main([clip] + args) == 0
+    return json.loads(capsys.readouterr().out)
+
+
+@pytest.mark.parametrize("device_stats", [False, True])
+@pytest.mark.parametrize("n,s", [(2, 1), (4, 2), (8, 2)])
+@pytest.mark.parametrize("route", ["grids", "sad"])
+def test_tune_mesh_matches_jax(clip, capsys, monkeypatch, route, n, s,
+                               device_stats):
+    """``tune --mesh N --mesh-sweep S`` prints the JAX tool's rows: frames
+    over the mesh's 'data' axis, configs over 'sweep' (CPU shards here,
+    the suite's virtual CPU devices there)."""
+    args = ["--mesh", str(n), "--mesh-sweep", str(s), "--clusters", "1,2"]
+    if route == "sad":
+        args += ["--scan-input", "sad", "--thresholds", "0.5,4,12"]
+    else:
+        args += ["--thresholds", "4,16", "--vectors", "0,1,2"]
+    if device_stats:
+        args.append("--device-stats")
+    monkeypatch.setenv("CHUNK_DURATION_SEC", "7.0")
+    monkeypatch.setenv("MVT_SCAN_BACKEND", "torch")
+    ours = _mesh_rows(torch_tune.main, clip, capsys, args)
+    # the mesh changes nothing: the single-device rows
+    assert _mesh_rows(torch_tune.main, clip, capsys, args[4:]) == ours
+    monkeypatch.delenv("MVT_SCAN_BACKEND")
+    theirs = _mesh_rows(jax_tune.main, clip, capsys, args)
+    assert {r["motion_frames"] for r in ours} != {0}
+    assert_rows(ours, theirs, device_stats)
+
+
+def test_tune_mesh_rejects_mv_raw(clip):
+    from mvtrim_tpu_torch.parallel.mesh import build_mesh
+
+    with pytest.raises(ValueError, match="grids scan input only"):
+        torch_tune.sweep(clip, [16.0], [2], [2], scan_input="mv_raw",
+                         cfg=Config(scan_backend="torch"),
+                         mesh=build_mesh(2, device="cpu"))
 
 
 def test_auto_without_cuda_raises(clip, monkeypatch):
