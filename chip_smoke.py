@@ -39,16 +39,27 @@ on the card's backend.
 
 Phase 5 times each kernel against its plain version and its bound: K1 at
 1080p B = 750 and 2048 and 4K B = 2048 at both row pitches (the bits as the
-scanner packs them, the words payload), where a K1 call's host time goes
-step by step, and the feeder's dispatch of one 750-frame chunk.
-``--times-only`` runs phases 1, 2 and 5.
+scanner packs them, the words payload) beside C1, the stream control of
+its launch, where a K1 call's host time goes step by step, and the
+feeder's dispatch of one 750-frame chunk.  ``--times-only`` runs phases 1,
+2 and 5.
+
+Phase 6 holds the bench's controls C1-C5 (``mvtrim_tpu_torch/bench/
+controls.py``) to their plain versions on the card, exactly, times them
+by CUDA graph, and runs ``python -m mvtrim_tpu_torch.bench --quick``'s
+main in this process: its last line must be the headline JSON and every
+cell must pass its audit.  Its launches, counted from 0 just before it
+(a graph's capture counts each launch once), must include every kernel
+and control.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
+import io
 import json
 import math
 import os
@@ -65,6 +76,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from mvtrim_tpu_torch import Config, GridGeometry, native, oracle  # noqa: E402
+from mvtrim_tpu_torch.bench import audit, controls  # noqa: E402
+from mvtrim_tpu_torch.bench.audit import (  # noqa: E402
+    centre_cells, least_time, map_bytes, word_bound)
 from mvtrim_tpu_torch.models.mv_detector import MVClusterDetector  # noqa: E402
 from mvtrim_tpu_torch.models.sad_detector import (  # noqa: E402
     SADDetector, sad_oracle_counts)
@@ -88,7 +102,24 @@ KERNELS = {
     "mv_cluster_counts": (mv_ops.mv_cluster_op,
                           "mvtrim_tpu_torch/csrc/mv_cluster.cu",
                           "mvtrim_tpu/ops/mv_vote.py:304,322"),
+    # the bench's controls (phase 6), C1-C5
+    "word_stream_control": (controls.word_stream_control,
+                            "mvtrim_tpu_torch/csrc/bench_controls.cu",
+                            "bench.py:369"),
+    "sad_stream_control": (controls.sad_stream_control,
+                           "mvtrim_tpu_torch/csrc/bench_controls.cu",
+                           "benchmarks/sad_bench.py:633"),
+    "mv_stream_control": (controls.mv_stream_control,
+                          "mvtrim_tpu_torch/csrc/bench_controls.cu",
+                          "benchmarks/mv_bench.py:469"),
+    "sad_compute_control": (controls.sad_compute_control,
+                            "mvtrim_tpu_torch/csrc/sad_block.cu",
+                            "benchmarks/sad_bench.py:491,520"),
+    "mv_compute_control": (controls.mv_compute_control,
+                           "mvtrim_tpu_torch/csrc/mv_cluster.cu",
+                           "benchmarks/mv_bench.py:469"),
 }
+CONTROLS = tuple(controls.CONTROLS)
 # path -> the kernels it must launch
 PATH_KERNELS = {
     "bits": ("word_cluster_counts",),
@@ -179,12 +210,6 @@ MV_TIMING = (("1080p", (1920, 1080), 8192, "sparse", "boxed"),
              ("1080p", (1920, 1080), 8192, "full", "spread"),
              ("4K", (3840, 2160), 16384, "sparse", "boxed"),
              ("4K", (3840, 2160), 16384, "full", "boxed"))
-# the card's published peaks (NVIDIA's data sheet, H100 SXM): HBM bytes/s
-# and the float32 CUDA-core rate, the table's nearest entry for the
-# kernels' 32-bit integer operations (Hopper's int32 rate is lower, so the
-# bound stays a lower bound)
-HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
 # phase 5: frames a launch and device-resident batches (K1, K3); K3 at the
 # SAD window on its own: (label, geometry, batches rotated); the SAD window
 # and its (label, geometry, windows rotated) cells
@@ -1738,17 +1763,6 @@ def _time(fn, batches, iters: int) -> tuple[float, torch.Tensor]:
             torch.stack(outs).sum(dtype=torch.int64))
 
 
-def _host_enqueue_us(fn, batches, iters: int = 256) -> float:
-    """Host-clock µs per call of fn, the card never waited for inside."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(iters):
-        fn(batches[i % len(batches)])
-    host_us = (time.perf_counter() - t0) / iters * 1e6
-    torch.cuda.synchronize()
-    return host_us
-
-
 def _turns(fns: dict, batches, refs, iters: dict) -> dict:
     """Time each function in turns (a, b, b, a, ...): mean ms per call
     and the runs; every checksum must equal the plain version's."""
@@ -1764,52 +1778,12 @@ def _turns(fns: dict, batches, refs, iters: dict) -> dict:
     return {name: (sum(r) / len(r), r) for name, r in runs.items()}
 
 
-def least_time(nbytes: float, ops: float) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the HBM rate and the operations over the peak rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def centre_cells(geom: GridGeometry) -> int:
-    rows = min(geom.y_max, geom.gh) - max(geom.y_min, 0)
-    return max(rows, 0) * max(geom.gw - 2, 0)
-
-
-def rows_bytes(geom: GridGeometry, b: int, row_bytes: int) -> int:
-    """Bytes a cluster kernel's function must move for b frames of rows of
-    row_bytes: the rows its counts depend on (the centre window and one
-    row on each side, inside the grid) read once, counts and motion
-    written."""
-    y_lo, y_hi = max(geom.y_min, 0), min(geom.y_max, geom.gh)
-    rows = 0 if y_hi <= y_lo else \
-        min(y_hi + 1, geom.gh) - max(y_lo - 1, 0)
-    return b * (rows * row_bytes + 5)
-
-
-def map_bytes(geom: GridGeometry, b: int, elem: int) -> int:
-    """rows_bytes of K3's votes, gw cells of elem bytes a row."""
-    return rows_bytes(geom, b, geom.gw * elem)
-
-
 def offset_copy(t: torch.Tensor, offset: int) -> torch.Tensor:
     """t's values in a tensor whose base lies offset bytes past an
     aligned address."""
     buf = torch.empty(t.numel() * t.element_size() + offset,
                       dtype=torch.uint8, device=t.device)
     return buf[offset:].view(t.dtype).view(t.shape).copy_(t)
-
-
-def word_bound(geom: GridGeometry, b: int, pitch: int) -> dict:
-    """K1's least time for b frames at a row pitch: the rows its counts
-    depend on read once, counts and motion written; about 16 integer
-    operations a word of those rows (the rule's shifts and ors, the
-    centre mask, a popcount, the sum)."""
-    gww = cluster_ops.word_geometry(geom)[0]
-    nbytes = rows_bytes(geom, b, pitch)
-    return {"nbytes": nbytes, **least_time(
-        nbytes, (nbytes - 5 * b) / pitch * gww * 16)}
 
 
 def phase_timing_words(rng, seed: int, card: str) -> dict:
@@ -1848,25 +1822,27 @@ def phase_timing_words(rng, seed: int, card: str) -> dict:
             t = _turns({"plain": plain, "kernel": kernel}, batches, ref,
                        {"plain": 16, "kernel": 256})
             (k_ms, k_runs), (p_ms, p_runs) = t["kernel"], t["plain"]
-            dev_us, dev_text = _device_time(kernel, batches,
-                                            "word_cluster_kernel")
+            dev_us, dev_text = audit.profiler_time(kernel, batches,
+                                                   "word_cluster_kernel")
             # one batch over and over, as the pipeline's kernel finds its
-            # batch in the L2 right after the H2D copy; and a stream
-            # control, a copy of the same batches (PyTorch's clone)
-            warm_us, warm_text = _device_time(kernel, batches[:1],
-                                              "word_cluster_kernel")
-            copy_text = _device_time(lambda t: t.clone(), batches,
-                                     "Memcpy DtoD")[1]
-            host_us = _host_enqueue_us(kernel, batches)
+            # batch in the L2 right after the H2D copy; and C1, the stream
+            # control of K1's launch, over the same batches
+            warm_us, warm_text = audit.profiler_time(kernel, batches[:1],
+                                                     "word_cluster_kernel")
+            ctrl_us, ctrl_text = audit.profiler_time(
+                lambda t, geom=geom: controls.word_stream_control(t, geom),
+                batches, "word_stream_control_kernel")
+            host_us = audit.host_time(kernel, batches)
             bound = word_bound(geom, b, pitch)
             key = f"{label} B={b} {name}"
             cells[key] = {"ms": k_ms, "plain_ms": p_ms, "device_us": dev_us,
-                          "warm_us": warm_us, "host_us": host_us, **bound}
+                          "warm_us": warm_us, "control_us": ctrl_us,
+                          "host_us": host_us, **bound}
             log(f"word_cluster {key} (pitch {pitch} B, {n} batches "
                 f"rotated, {bound['nbytes'] / 1e6:.3f} MB the function "
                 f"moves) on {card}: device time {dev_text}; one batch "
-                f"(L2-warm): {warm_text}; clone of the same batches: "
-                f"{copy_text}; event "
+                f"(L2-warm): {warm_text}; C1, the stream control of its "
+                f"launch, on the same batches: {ctrl_text}; event "
                 f"{k_ms * 1e3:.3f} us/launch (runs {k_runs} ms); host "
                 f"enqueue {host_us:.3f} us a call; plain "
                 f"{p_ms * 1e3:.3f} us (runs {p_runs} ms); bound "
@@ -1933,7 +1909,7 @@ def launch_steps(seed: int, card: str) -> None:
     runs: dict[str, list[float]] = {}
     for name in list(steps) + list(steps)[::-1]:
         runs.setdefault(name, []).append(
-            _host_enqueue_us(lambda _, f=steps[name]: f(), [None]))
+            audit.host_time(lambda _, f=steps[name]: f(), [None]))
     for name, us in runs.items():
         log(f"K1 call step, 1080p B={b}, on {card}: {name}: "
             f"{[round(u, 3) for u in us]} us a call")
@@ -2013,8 +1989,8 @@ def phase_timing_map(seed: int, card: str) -> dict:
         f"{b / k_ms * 1e3:.0f} frames/s; runs {k_runs} ms), plain "
         f"{p_ms * 1e3:.3f} us/launch (runs {p_runs} ms)")
     log(f"cluster_map kernel device time per launch (torch.profiler): "
-        f"{_device_time(kernel, batches, 'cluster_map_kernel')[1]}; "
-        f"host enqueue per call {_host_enqueue_us(kernel, batches):.3f} us")
+        f"{audit.profiler_time(kernel, batches, 'cluster_map_kernel')[1]}; "
+        f"host enqueue per call {audit.host_time(kernel, batches):.3f} us")
     _time_map_offset(kernel, batches, 1, f"1080p B={b} uint8", card)
     # the uint8 rows the counts depend on read once, counts and motion
     # written; about 7 integer operations a centre cell (four maxima, a
@@ -2063,8 +2039,8 @@ def _time_map_window(seed: int, card: str, label: str, width: int,
         f"{bnd['bound_ms'] * 1e3:.3f} us by {bnd['bound_by']}")
     log(f"cluster_map kernel device time per launch, {label} B={b} int32 "
         f"(torch.profiler): "
-        f"{_device_time(kernel, batches, 'cluster_map_kernel')[1]}; "
-        f"host enqueue per call {_host_enqueue_us(kernel, batches):.3f} us")
+        f"{audit.profiler_time(kernel, batches, 'cluster_map_kernel')[1]}; "
+        f"host enqueue per call {audit.host_time(kernel, batches):.3f} us")
     if label == "1080p":
         _time_map_offset(kernel, batches, 4, f"{label} B={b} int32", card)
 
@@ -2080,7 +2056,7 @@ def _time_map_offset(kernel, batches, offset: int, label: str,
     t = _turns({"aligned": lambda i: kernel(batches[i]),
                 "offset": lambda i: kernel(moved[i])}, idx, ref,
                {"aligned": 256, "offset": 256})
-    dev = {name: _device_time(fn, src, "cluster_map_kernel")[1]
+    dev = {name: audit.profiler_time(fn, src, "cluster_map_kernel")[1]
            for name, fn, src in (("aligned", kernel, batches),
                                  ("offset", kernel, moved))}
     log(f"cluster_map {label} on {card}, aligned base against {offset} B "
@@ -2157,7 +2133,7 @@ def phase_timing_sad(seed: int, card: str) -> dict:
             f"cluster_map) {op_ms * 1e3:.3f} us/window (runs {op_runs} ms); "
             f"H2D from pinned memory {h2d_ms * 1e3:.3f} us/window "
             f"({nbytes / h2d_ms / 1e6:.3f} GB/s)")
-        host_us = _host_enqueue_us(
+        host_us = audit.host_time(
             lambda w, g=geom: sad_ops.sad_grid_op(w, g, bs), wins)
         log(f"sad_block {label} host enqueue per sad_grid_op call: "
             f"{host_us:.3f} us")
@@ -2244,8 +2220,8 @@ def phase_timing_mv(seed: int, card: str) -> dict:
             f"{out[key]['bound_by']}")
         log(f"mv_cluster kernel device time per launch (torch.profiler, "
             f"{key}): "
-            f"{_device_time(kernel, batches, 'mv_cluster_kernel')[1]}; "
-            f"host enqueue per call {_host_enqueue_us(kernel, batches):.3f}"
+            f"{audit.profiler_time(kernel, batches, 'mv_cluster_kernel')[1]}; "
+            f"host enqueue per call {audit.host_time(kernel, batches):.3f}"
             f" us")
         if mode == "spread":
             # the same count of MVs as "full", no cell collecting more
@@ -2283,34 +2259,6 @@ def phase_timing_mv(seed: int, card: str) -> dict:
     return out
 
 
-def _device_time(fn, batches, kernel_name: str):
-    """Mean device us a launch of a kernel over 64 calls (None where the
-    trace holds no device time for it), and a line with the card's busy
-    share across those calls (host clock, profiler running), from a
-    torch.profiler trace."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(64):
-            fn(batches[i % len(batches)])
-        torch.cuda.synchronize()
-        window_us = (time.perf_counter() - t0) * 1e6
-    for ev in prof.key_averages():
-        if kernel_name in ev.key:
-            dev_us = getattr(ev, "device_time_total",
-                             getattr(ev, "cuda_time_total", 0.0))
-            if dev_us <= 0:
-                break
-            return dev_us / ev.count, (
-                f"{dev_us / ev.count:.3f} us over {ev.count} launches; "
-                f"card busy {dev_us / window_us * 100:.2f}% of the "
-                f"{window_us:.0f} us host window")
-    return None, "not measured (the trace holds no device time for the kernel)"
-
-
 def phase_timing(rng, seed: int, card: str) -> dict:
     """Phase 5: each kernel at its timed shape; name -> times and bound."""
     times = {"word_cluster_counts": phase_timing_words(rng, seed, card),
@@ -2322,9 +2270,227 @@ def phase_timing(rng, seed: int, card: str) -> dict:
     for name, t in times.items():
         log(f"{name}: {t['ms'] * 1e3:.3f} us a launch at its timed shape "
             f"against a bound of {t['bound_ms'] * 1e3:.3f} us by "
-            f"{t['bound_by']} ({HBM_BYTES_PER_S / 1e12} TB/s, "
-            f"{OPS_PER_S / 1e12:.0f} T operations/s) on {card}")
+            f"{t['bound_by']} ({audit.HBM_BYTES_PER_S / 1e12} TB/s, "
+            f"{audit.OPS_PER_S / 1e12:.0f} T operations/s) on {card}")
     return times
+
+
+# --- phase 6 ---
+
+def phase_correctness_controls(seed: int) -> dict:
+    """C1-C5 vs their plain versions on the card, on the same tensors,
+    exact: C1 at both pitches (the bits' 15 B at 1080p), aligned and at a
+    base 1 B (bits) or 4 B (words) off, and on frames past a block's shared
+    memory; C2 and C4 on SAD windows, a base 1 B off too (one-byte loads);
+    C3 and C5 at sparse and full counts, C5 also with the global
+    histogram.  Returns name -> max |kernel - plain|."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 8)
+    worst = dict.fromkeys(CONTROLS, 0)
+
+    def check(name, got, plain, label):
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - plain.to(torch.int64)).abs().max())
+        worst[name] = max(worst[name], err)
+        if err:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {label}: max |diff| {err}")
+
+    width, height, vm, shift, large_b = WORD_LARGE
+    for w, h, cfg, batches in (
+            (1920, 1080, Config(), (750, 2048)),
+            (3840, 2160, Config(), (777,)),
+            (200, 144, Config(), (777,)),
+            (width, height, Config(vertical_mask=vm, block_shift=shift,
+                                   block_size=1 << shift), large_b)):
+        geom = GridGeometry.build(w, h, cfg)
+        gwb = (geom.gw + 7) // 8
+        for b in batches:
+            bits = torch.randint(0, 256, (b, geom.gh, gwb), dtype=torch.uint8,
+                                 device="cuda", generator=gen)
+            for name, t in (("bits", bits),
+                            ("words", cluster_ops.bits_to_words(bits, geom))):
+                for base, label in ((t, "aligned"),
+                                    (offset_copy(t, WORD_OFFSETS[name]),
+                                     "offset")):
+                    plain = controls.word_stream_control_plain(
+                        controls.word_rows(base, geom), geom)
+                    check("word_stream_control",
+                          controls.word_stream_control(base, geom), plain,
+                          f"{w}x{h} B={b} {name} {label}")
+        log(f"word_stream_control {w}x{h} BLOCK_SHIFT={cfg.block_shift} "
+            f"B={batches}: kernel == plain at pitches {gwb} B (bits) and "
+            f"{4 * ((geom.gw + 31) // 32)} B (words), aligned and offset")
+
+    bs = Config().block_size
+    for w, h, b in ((1920, 1080, SAD_WINDOW), (3840, 2160, SAD_WINDOW),
+                    (1000, 562, 5), (320, 240, 3)):
+        geom = GridGeometry.build(w, h, Config())
+        luma = torch.randint(0, 256, (1 + b, h, w), dtype=torch.uint8,
+                             device="cuda", generator=gen)
+        for base, label in ((luma, "aligned"),
+                            (offset_copy(luma, 1), "offset by 1 byte")):
+            vec = sad_ops._vector_width(base, bs)
+            check("sad_stream_control",
+                  controls.sad_stream_control(base, geom, bs),
+                  controls.sad_stream_control_plain(base, bs),
+                  f"{w}x{h} B={b} {label}")
+            check("sad_compute_control",
+                  controls.sad_compute_control(base, geom, bs),
+                  controls.sad_compute_control_plain(base, bs),
+                  f"{w}x{h} B={b} {label}")
+            log(f"sad_stream_control, sad_compute_control {w}x{h} B={b} "
+                f"({label}, {vec}-byte loads): kernel == plain")
+
+    cfg = Config()
+    bound = mv_ops.threshold_bound(cfg.mv_threshold_sq)
+    need = oracle.effective_clusters_needed(cfg.clusters_needed)
+    for w, h, m, b, mode in ((1920, 1080, 8192, 2048, "sparse"),
+                             (1920, 1080, 8192, 777, "full"),
+                             (3840, 2160, 16384, 777, "sparse"),
+                             (7680, 4320, 8192, 64, "sparse")):
+        geom = GridGeometry.build(w, h, cfg)
+        if mode == "full":
+            counts = torch.full((b,), m, dtype=torch.int32, device="cuda")
+        else:
+            u = torch.rand((b,), generator=gen, device="cuda")
+            counts = torch.exp(u * math.log(m)).to(torch.int32)
+        counts[7::50] = 0
+        mvs = device_mvs(gen, counts, m, w, h)
+        label = f"{w}x{h} M={m} B={b} {mode}"
+        check("mv_stream_control", controls.mv_stream_control(mvs, counts),
+              controls.mv_stream_control_plain(mvs, counts), label)
+        for c0 in (counts, torch.cat([counts[7:8], counts[1:]])):
+            got, motion = controls.mv_compute_control(
+                mvs, c0, geom, bound, cfg.vectors_needed, cfg.clusters_needed,
+                cfg.block_shift)
+            plain, _ = controls.mv_compute_control_plain(
+                mvs, c0, geom, bound, cfg.vectors_needed, cfg.clusters_needed,
+                cfg.block_shift)
+            check("mv_compute_control", got, plain, label)
+            if not torch.equal(motion, (plain >= need) & (c0[0] > 0)):
+                raise AssertionError(f"mv_compute_control motion at {label}")
+        glob = mv_ops.uses_global_histogram(geom, counts.device)
+        log(f"mv_stream_control, mv_compute_control {label} (frame 0 with "
+            f"its count and with none; "
+            f"{'global' if glob else 'shared-memory'} histogram): kernel "
+            f"== plain")
+    return worst
+
+
+def _control_time(name: str, fn, plain, inputs, per_input, nbytes: float,
+                  ops: float, card: str) -> dict:
+    """A control at the kernels line's shape: device time a launch by CUDA
+    graph (64 launches over the rotated inputs), the plain version by
+    events, and the bound."""
+    t = audit.graph_time(fn, inputs, max(64, len(inputs)), per_input, 3)
+    if not t["checksum_ok"]:
+        raise AssertionError(f"{name}: checksum of the graph's launches")
+    runs = sorted(t["runs_us"])
+    plain_ms, checksum = _time(plain, inputs, 4)
+    if int(checksum) != audit.expected_total(per_input, len(inputs), 4):
+        raise AssertionError(f"{name}: plain version's checksum")
+    out = {"ms": runs[1] * 1e-3, "plain_ms": plain_ms,
+           **least_time(nbytes, ops)}
+    log(f"{name} on {card}: {t['runs_us']} us a launch (CUDA graph); plain "
+        f"{plain_ms * 1e3:.3f} us; bound {out['bound_ms'] * 1e3:.3f} us by "
+        f"{out['bound_by']}")
+    return out
+
+
+def phase_timing_controls(seed: int, card: str) -> dict:
+    """C1-C5 at the shapes of the kernels line: C1 on the bits payload at
+    1080p B = 2048, C2 and C4 on a 1080p SAD window, C3 and C5 at 1080p
+    M = 8192 with sparse counts, each on buffers rotated past the L2."""
+    cfg = Config()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 9)
+    out = {}
+    geom = GridGeometry.build(1920, 1080, cfg)
+    b, gwb = 2048, (geom.gw + 7) // 8
+    k = math.ceil(audit.ROTATED_BYTES / (b * geom.gh * gwb))
+    bits = [torch.randint(0, 256, (b, geom.gh, gwb), dtype=torch.uint8,
+                          device="cuda", generator=gen) for _ in range(k)]
+
+    def c1_plain(t):
+        return controls.word_stream_control_plain(t, geom)
+
+    out["word_stream_control"] = _control_time(
+        "word_stream_control 1080p B=2048 bits",
+        lambda t: controls.word_stream_control(t, geom), c1_plain, bits,
+        [int(c1_plain(t).sum()) for t in bits], b * (geom.gh * gwb + 4),
+        b * geom.gh * ((geom.gw + 31) // 32) * 2, card)
+    del bits
+
+    bs, h, w = cfg.block_size, 1080, 1920
+    wins = [torch.randint(0, 256, (1 + SAD_WINDOW, h, w), dtype=torch.uint8,
+                          device="cuda", generator=gen) for _ in range(2)]
+    grid_bytes = SAD_WINDOW * geom.gh * geom.gw * 4
+    for name, fn, plain, nbytes in (
+            ("sad_stream_control", controls.sad_stream_control,
+             controls.sad_stream_control_plain,
+             (1 + SAD_WINDOW) * h * w + grid_bytes),
+            ("sad_compute_control", controls.sad_compute_control,
+             controls.sad_compute_control_plain, 2 * h * w + grid_bytes)):
+        out[name] = _control_time(
+            f"{name} 1080p B={SAD_WINDOW}",
+            lambda t, fn=fn: fn(t, geom, bs),
+            lambda t, plain=plain: plain(t, bs), wins,
+            [int(plain(t, bs).sum(dtype=torch.int64)) for t in wins],
+            nbytes, SAD_WINDOW * h * w * 2, card)
+    del wins
+
+    m = 8192
+    bound = mv_ops.threshold_bound(cfg.mv_threshold_sq)
+    args = (geom, bound, cfg.vectors_needed, cfg.clusters_needed,
+            cfg.block_shift)
+    sets, held = [], 0
+    while len(sets) < 2 or held < audit.ROTATED_BYTES:
+        u = torch.rand((b,), generator=gen, device="cuda")
+        counts = torch.exp(u * math.log(m)).to(torch.int32)
+        sets.append((device_mvs(gen, counts, m, 1920, 1080), counts))
+        held += int(counts.sum()) * 8
+    rows = sum(int(c.sum()) for _, c in sets) / len(sets)
+    first = sum(int(c[0]) for _, c in sets) / len(sets)
+    out["mv_stream_control"] = _control_time(
+        "mv_stream_control 1080p M=8192 sparse",
+        lambda fc: controls.mv_stream_control(*fc),
+        lambda fc: controls.mv_stream_control_plain(*fc), sets,
+        [int(controls.mv_stream_control_plain(*fc).sum()) for fc in sets],
+        rows * 8 + b * 8, rows * 4, card)
+    out["mv_compute_control"] = _control_time(
+        "mv_compute_control 1080p M=8192 sparse",
+        lambda fc: controls.mv_compute_control(*fc, *args)[0],
+        lambda fc: controls.mv_compute_control_plain(*fc, *args)[0], sets,
+        [int(controls.mv_compute_control_plain(*fc, *args)[0].sum())
+         for fc in sets],
+        first * 8 + b * 9, b * (first * 12 + centre_cells(geom) * 8), card)
+    del sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def bench_path() -> None:
+    """``python -m mvtrim_tpu_torch.bench --quick``'s main, in this
+    process: every line logged; the last must be its headline JSON, with
+    the contract keys, a value, and every cell audited."""
+    from mvtrim_tpu_torch.bench import __main__ as bench_main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_main.main(["--quick"])
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"bench: {line}")
+    rec = json.loads(lines[-1])
+    missing = [k for k in ("metric", "value", "unit", "impl", "roofline_gbps",
+                           "bytes_per_frame", "audit", "control_gbps",
+                           "pct_of_control") if k not in rec]
+    if (rc != 0 or missing or not rec["all_audited"] or not rec["value"]
+            or rec["metric"] != "1080p_scan_frames_per_sec_per_chip"):
+        raise AssertionError(f"bench --quick: rc {rc}, missing {missing}, "
+                             f"all audited {rec.get('all_audited')}")
+    log(f"bench --quick: {time.perf_counter() - t0:.3f} s, every cell "
+        f"audited; headline {rec['value']:.0f} {rec['unit']}")
 
 
 def main() -> int:
@@ -2367,6 +2533,16 @@ def main() -> int:
 
     times = phase_timing(rng, args.seed, card)
     log(f"phase 5 done at {time.perf_counter() - t_start:.3f} s")
+
+    worst.update(phase_correctness_controls(args.seed))
+    times.update(phase_timing_controls(args.seed, card))
+    bench_launches = counted(bench_path)
+    log(f"kernel launches in the bench --quick run (a graph's capture "
+        f"counts each launch once, its replays not): {bench_launches}")
+    for name in KERNELS:
+        if bench_launches[name] == 0:
+            raise AssertionError(f"the bench never launched {name}")
+    log(f"phase 6 done at {time.perf_counter() - t_start:.3f} s")
     loaded = [m for m in sys.modules
               if m in ("jax", "mvtrim_tpu") or m.startswith(("jax.",
                                                             "mvtrim_tpu."))]
@@ -2375,8 +2551,9 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces,
-        "launches": sum(launches[p][name] for p, names
-                        in PATH_KERNELS.items() if name in names),
+        "launches": bench_launches[name] + sum(
+            launches[p][name] for p, names in PATH_KERNELS.items()
+            if name in names),
         "max_abs_err": worst[name], "ms": times[name]["ms"],
         "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"],

@@ -48,6 +48,7 @@
 // shared memory.  Many MVs in one cell cost nothing extra: full lists with a
 // third of the MVs in 48 cells ran as fast as the same count spread evenly.
 
+#include <atomic>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -98,13 +99,16 @@ size_t shared_bytes(int rows, int gw, bool with_hist) {
     return words * sizeof(uint32_t);
 }
 
-__global__ void __launch_bounds__(kThreads)
-mv_cluster_kernel(const short4* __restrict__ mvs,
-                  const int32_t* __restrict__ mv_counts, int batch, int m,
-                  int gh, int gw, int y_min, int y_max, long long bound,
-                  int thr, int need, int shift, int32_t* __restrict__ scratch,
-                  int32_t* __restrict__ counts,
-                  uint8_t* __restrict__ motion) {
+// The kernel's body.  kResident (the compute control, which replaces the
+// TPU bench's mv_bench.py mmctrl as the arithmetic ceiling of this launch)
+// holds the frame index at frame 0: every CTA reads frame 0's count and MVs,
+// which stay in the L2, and writes its own frame's outputs.
+template <bool kResident>
+__device__ __forceinline__ void mv_cluster_body(
+    const short4* __restrict__ mvs, const int32_t* __restrict__ mv_counts,
+    int batch, int m, int gh, int gw, int y_min, int y_max, long long bound,
+    int thr, int need, int shift, int32_t* __restrict__ scratch,
+    int32_t* __restrict__ counts, uint8_t* __restrict__ motion) {
     extern __shared__ __align__(16) uint32_t smem[];
     uint32_t* sums = smem;
     uint32_t* words = smem + 32;
@@ -127,9 +131,10 @@ mv_cluster_kernel(const short4* __restrict__ mvs,
         for (int i = tid; i < rows * gww; i += kThreads) words[i] = fill;
         __syncthreads();
 
-        const int count = mv_counts[b];
+        const int fb = kResident ? 0 : b;  // the frame read
+        const int count = mv_counts[fb];
         const int n = min(max(count, 0), m);
-        const short4* f = mvs + static_cast<size_t>(b) * m;
+        const short4* f = mvs + static_cast<size_t>(fb) * m;
 #pragma unroll 8
         for (int k = tid; k < n; k += kThreads) {
             const short4 mv = __ldg(f + k);
@@ -161,6 +166,79 @@ mv_cluster_kernel(const short4* __restrict__ mvs,
         // the next frame's stores to the histogram, the words and the warp
         // sums each come after a barrier that follows this frame's reads
     }
+}
+
+__global__ void __launch_bounds__(kThreads)
+mv_cluster_kernel(const short4* __restrict__ mvs,
+                  const int32_t* __restrict__ mv_counts, int batch, int m,
+                  int gh, int gw, int y_min, int y_max, long long bound,
+                  int thr, int need, int shift, int32_t* __restrict__ scratch,
+                  int32_t* __restrict__ counts,
+                  uint8_t* __restrict__ motion) {
+    mv_cluster_body<false>(mvs, mv_counts, batch, m, gh, gw, y_min, y_max,
+                           bound, thr, need, shift, scratch, counts, motion);
+}
+
+__global__ void __launch_bounds__(kThreads)
+mv_cluster_resident_kernel(const short4* __restrict__ mvs,
+                           const int32_t* __restrict__ mv_counts, int batch,
+                           int m, int gh, int gw, int y_min, int y_max,
+                           long long bound, int thr, int need, int shift,
+                           int32_t* __restrict__ scratch,
+                           int32_t* __restrict__ counts,
+                           uint8_t* __restrict__ motion) {
+    mv_cluster_body<true>(mvs, mv_counts, batch, m, gh, gw, y_min, y_max,
+                          bound, thr, need, shift, scratch, counts, motion);
+}
+
+// Lets the kernel take `smem` bytes of dynamic shared memory on `device`,
+// asked of the CUDA runtime only when more than it allowed before, so a
+// CUDA graph captures launches without the attribute call once eager
+// launches at the same shapes have run.
+template <bool kResident>
+cudaError_t allow_shared(int device, size_t smem) {
+    static std::atomic<size_t> allowed[mvt::kMaxDevices];
+    const bool cached = device >= 0 && device < mvt::kMaxDevices;
+    if (cached && allowed[device].load(std::memory_order_relaxed) >= smem)
+        return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kResident ? mv_cluster_resident_kernel : mv_cluster_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err == cudaSuccess && cached)
+        allowed[device].store(smem, std::memory_order_relaxed);
+    return err;
+}
+
+template <bool kResident>
+int launch(const void* mvs, const void* mv_counts, int batch, int m, int gh,
+           int gw, int y_min, int y_max, long long bound, int thr, int need,
+           int shift, void* scratch, long long scratch_cells, void* counts,
+           void* motion, int device, void* stream) {
+    const mvt::DeviceGuard guard(device);
+    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+    if (batch <= 0) return static_cast<int>(cudaGetLastError());
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int rows = window_rows(gh, y_min, y_max);
+    const long long cells = static_cast<long long>(rows) * gw;
+    int blocks = batch;
+    if (scratch != nullptr && cells > 0) {
+        if (scratch_cells < cells)
+            return static_cast<int>(cudaErrorInvalidValue);
+        const long long fit = scratch_cells / cells;
+        blocks = fit < batch ? static_cast<int>(fit) : batch;
+    }
+    const size_t smem = shared_bytes(rows, gw, scratch == nullptr);
+    if (smem > 48 * 1024) {
+        const cudaError_t err = allow_shared<kResident>(device, smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    auto kernel = kResident ? mv_cluster_resident_kernel : mv_cluster_kernel;
+    kernel<<<blocks, kThreads, smem, s>>>(
+        static_cast<const short4*>(mvs),
+        static_cast<const int32_t*>(mv_counts), batch, m, gh, gw, y_min,
+        y_max, bound, thr, need, shift, static_cast<int32_t*>(scratch),
+        static_cast<int32_t*>(counts), static_cast<uint8_t*>(motion));
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -205,30 +283,22 @@ extern "C" int mvt_mv_cluster_counts(const void* mvs, const void* mv_counts,
                                      void* scratch, long long scratch_cells,
                                      void* counts, void* motion, int device,
                                      void* stream) {
-    const mvt::DeviceGuard guard(device);
-    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
-    if (batch <= 0) return static_cast<int>(cudaGetLastError());
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int rows = window_rows(gh, y_min, y_max);
-    const long long cells = static_cast<long long>(rows) * gw;
-    int blocks = batch;
-    if (scratch != nullptr && cells > 0) {
-        if (scratch_cells < cells)
-            return static_cast<int>(cudaErrorInvalidValue);
-        const long long fit = scratch_cells / cells;
-        blocks = fit < batch ? static_cast<int>(fit) : batch;
-    }
-    const size_t smem = shared_bytes(rows, gw, scratch == nullptr);
-    if (smem > 48 * 1024) {
-        cudaError_t err = cudaFuncSetAttribute(
-            mv_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(smem));
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    mv_cluster_kernel<<<blocks, kThreads, smem, s>>>(
-        static_cast<const short4*>(mvs),
-        static_cast<const int32_t*>(mv_counts), batch, m, gh, gw, y_min,
-        y_max, bound, thr, need, shift, static_cast<int32_t*>(scratch),
-        static_cast<int32_t*>(counts), static_cast<uint8_t*>(motion));
-    return static_cast<int>(cudaGetLastError());
+    return launch<false>(mvs, mv_counts, batch, m, gh, gw, y_min, y_max,
+                         bound, thr, need, shift, scratch, scratch_cells,
+                         counts, motion, device, stream);
+}
+
+// The compute control: the same launch, arguments and outputs, the frame
+// index held at frame 0 (mv_cluster_body), so counts[b] and motion[b] are
+// frame 0's decision for every b < batch.
+extern "C" int mvt_mv_compute_control(const void* mvs, const void* mv_counts,
+                                      int batch, int m, int gh, int gw,
+                                      int y_min, int y_max, long long bound,
+                                      int thr, int need, int shift,
+                                      void* scratch, long long scratch_cells,
+                                      void* counts, void* motion, int device,
+                                      void* stream) {
+    return launch<true>(mvs, mv_counts, batch, m, gh, gw, y_min, y_max,
+                        bound, thr, need, shift, scratch, scratch_cells,
+                        counts, motion, device, stream);
 }

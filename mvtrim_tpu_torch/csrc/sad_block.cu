@@ -81,15 +81,23 @@ __device__ __forceinline__ uint32_t unit_sad<1>(const uint8_t* cur,
     return acc + static_cast<uint32_t>(d < 0 ? -d : d);
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(256)
-sad_block_kernel(const uint8_t* __restrict__ luma, int height, int width,
-                 int block, int gh, int gw, int32_t* __restrict__ grid) {
+// The kernel's body.  kResident (the compute control, which replaces the
+// TPU bench's sad_bench.py comp variants) holds the frame index at one
+// resident frame: every CTA reads plane 1 as cur, and as prev the carry
+// (plane 0) for frame 0 and plane 1 itself after, as the TPU comp
+// control's carry scratch does, so its two planes stay in the L2 and the
+// same loads and arithmetic run at the cache's rate.
+template <int VEC, bool kResident>
+__device__ __forceinline__ void sad_block_body(
+    const uint8_t* __restrict__ luma, int height, int width, int block,
+    int gh, int gw, int32_t* __restrict__ grid) {
     const int b = blockIdx.x;   // output frame: cur = b + 1, prev = b
     const int by = blockIdx.y;  // block row
     const size_t plane = static_cast<size_t>(height) * width;
-    const uint8_t* prev = luma + static_cast<size_t>(b) * plane;
-    const uint8_t* cur = prev + plane;
+    const uint8_t* prev =
+        kResident ? luma + (b == 0 ? 0 : plane)
+                  : luma + static_cast<size_t>(b) * plane;
+    const uint8_t* cur = kResident ? luma + plane : prev + plane;
     const int r0 = by * block;
     const int r1 = min(r0 + block, height);
     const int tpb = block / VEC;  // threads per block column, divides 32
@@ -119,13 +127,56 @@ sad_block_kernel(const uint8_t* __restrict__ luma, int height, int width,
 }
 
 template <int VEC>
+__global__ void __launch_bounds__(256)
+sad_block_kernel(const uint8_t* __restrict__ luma, int height, int width,
+                 int block, int gh, int gw, int32_t* __restrict__ grid) {
+    sad_block_body<VEC, false>(luma, height, width, block, gh, gw, grid);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(256)
+sad_block_resident_kernel(const uint8_t* __restrict__ luma, int height,
+                          int width, int block, int gh, int gw,
+                          int32_t* __restrict__ grid) {
+    sad_block_body<VEC, true>(luma, height, width, block, gh, gw, grid);
+}
+
+template <int VEC, bool kResident>
 void launch(const void* luma, int batch, int height, int width, int block,
             int gh, int gw, void* grid, cudaStream_t stream) {
     const int units = (width + VEC - 1) / VEC;
     const int threads = std::min(256, (units + 31) / 32 * 32);
-    sad_block_kernel<VEC><<<dim3(batch, gh), threads, 0, stream>>>(
+    auto kernel = kResident ? sad_block_resident_kernel<VEC>
+                            : sad_block_kernel<VEC>;
+    kernel<<<dim3(batch, gh), threads, 0, stream>>>(
         static_cast<const uint8_t*>(luma), height, width, block, gh, gw,
         static_cast<int32_t*>(grid));
+}
+
+template <bool kResident>
+int launch_checked(const void* luma, int batch, int height, int width,
+                   int block, int gh, int gw, int vec, void* grid,
+                   int device, void* stream) {
+    const int tpb = vec > 0 ? block / vec : 0;
+    if ((vec != 1 && vec != 4 && vec != 16) || block % vec != 0 ||
+        tpb < 1 || tpb > 32 || (tpb & (tpb - 1)) != 0 || width % vec != 0 ||
+        gh > 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const mvt::DeviceGuard guard(device);
+    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+    if (batch > 0 && gh > 0) {
+        cudaStream_t s = static_cast<cudaStream_t>(stream);
+        if (vec == 16)
+            launch<16, kResident>(luma, batch, height, width, block, gh, gw,
+                                  grid, s);
+        else if (vec == 4)
+            launch<4, kResident>(luma, batch, height, width, block, gh, gw,
+                                 grid, s);
+        else
+            launch<1, kResident>(luma, batch, height, width, block, gh, gw,
+                                 grid, s);
+    }
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -140,21 +191,18 @@ extern "C" int mvt_sad_block_grid(const void* luma, int batch, int height,
                                   int width, int block, int gh, int gw,
                                   int vec, void* grid, int device,
                                   void* stream) {
-    const int tpb = vec > 0 ? block / vec : 0;
-    if ((vec != 1 && vec != 4 && vec != 16) || block % vec != 0 ||
-        tpb < 1 || tpb > 32 || (tpb & (tpb - 1)) != 0 || width % vec != 0 ||
-        gh > 65535)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const mvt::DeviceGuard guard(device);
-    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
-    if (batch > 0 && gh > 0) {
-        cudaStream_t s = static_cast<cudaStream_t>(stream);
-        if (vec == 16)
-            launch<16>(luma, batch, height, width, block, gh, gw, grid, s);
-        else if (vec == 4)
-            launch<4>(luma, batch, height, width, block, gh, gw, grid, s);
-        else
-            launch<1>(luma, batch, height, width, block, gh, gw, grid, s);
-    }
-    return static_cast<int>(cudaGetLastError());
+    return launch_checked<false>(luma, batch, height, width, block, gh, gw,
+                                 vec, grid, device, stream);
+}
+
+// The compute control: the same launch over luma [>= 2, H, W], the frame
+// index held at one resident frame (sad_block_body), so grid[0] is the
+// block SAD of plane 1 against plane 0 and grid[b > 0] that of plane 1
+// against itself (zero), for b < batch.
+extern "C" int mvt_sad_compute_control(const void* luma, int batch,
+                                       int height, int width, int block,
+                                       int gh, int gw, int vec, void* grid,
+                                       int device, void* stream) {
+    return launch_checked<true>(luma, batch, height, width, block, gh, gw,
+                                vec, grid, device, stream);
 }

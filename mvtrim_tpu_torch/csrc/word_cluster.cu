@@ -34,8 +34,9 @@
 // mbarrier), so all of the CTA's bytes are in flight at once and the copy
 // costs no registers.  The copy takes the span's 16-byte-aligned middle;
 // plain loads take the unaligned head and tail, and no byte past the span is
-// read (a bits frame is 1,020 B at 1080p, and the base may sit anywhere).
-// The rule then runs from shared memory: lane l takes word column c = l %
+// read (a bits frame is 1,020 B at 1080p, and the base may sit anywhere);
+// frame_span.cuh holds that loader and the choice of F, which the stream
+// control of this launch (bench_controls.cu) shares.  The rule then runs from shared memory: lane l takes word column c = l %
 // gww of a band of rows, walking down it with the rows above and below in
 // registers, so each row costs one word read (two aligned 32-bit reads and a
 // __funnelshift_r at an unaligned pitch, one where pitch and base are 4-byte
@@ -58,57 +59,13 @@
 #include <cuda_runtime.h>
 
 #include "cluster_words.cuh"
+#include "frame_span.cuh"
 #include "launch.cuh"
 
 namespace {
 
 using mvt::kFullMask;
-
-constexpr int kMaxFrames = 32;     // frames (warps) a CTA
-constexpr int kBarrierBytes = 16;  // the mbarrier, padded to 16 bytes
-
-// Shared-memory bytes for F frames of frame_bytes: the barrier, up to 15
-// bytes before the span's first byte (it keeps its address mod 16), the span
-// and one word that the last unaligned read may touch past it.
-long long shared_bytes(int frames, long long frame_bytes) {
-    return kBarrierBytes + 16 + frames * frame_bytes + 16;
-}
-
-// A CTA's span in shared memory: byte o of the span lies at bytes[head + o],
-// bytes 16-byte aligned.
-template <bool kAligned>
-struct SharedSpan {
-    const uint32_t* words;  // bytes, as 32-bit words
-    const uint8_t* bytes;
-    int head;
-
-    // bytes o..o+3 of the span, little-endian
-    __device__ __forceinline__ uint32_t word(int o, int) const {
-        o += head;
-        if (kAligned) return words[o >> 2];
-        return __funnelshift_r(words[o >> 2], words[(o >> 2) + 1],
-                               8 * (o & 3));
-    }
-    __device__ __forceinline__ uint32_t byte(int o) const {
-        return bytes[head + o];
-    }
-};
-
-// One frame in device memory, read a byte at a time; `avail` bytes of the
-// row are left from o, so nothing past the row is read.
-struct GlobalFrame {
-    const uint8_t* bytes;
-
-    __device__ __forceinline__ uint32_t word(int o, int avail) const {
-        uint32_t w = 0;
-        for (int i = 0; i < 4 && i < avail; ++i)
-            w |= static_cast<uint32_t>(__ldg(bytes + o + i)) << (8 * i);
-        return w;
-    }
-    __device__ __forceinline__ uint32_t byte(int o) const {
-        return __ldg(bytes + o);
-    }
-};
+using mvt::kMaxFrames;
 
 // The warp's count of cluster cells over rows [y_lo, y_hi) of the frame whose
 // row y starts at byte base + y * pitch of src (summed in lane 0).  Lane l
@@ -153,47 +110,6 @@ __device__ __forceinline__ uint32_t count_frame(const Src& src, int base,
     return total;
 }
 
-__device__ __forceinline__ uint32_t shared_address(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Copies `bytes` (a multiple of 16, 16-byte-aligned ends) with one bulk
-// copy completing on `barrier`, which it initialises; 0 bytes completes the
-// barrier's phase at once.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          int bytes, uint64_t* barrier) {
-    const uint32_t bar = shared_address(barrier);
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile(
-        "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-        "r"(bytes)
-        : "memory");
-    if (bytes > 0)
-        asm volatile(
-            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-            " [%0], [%1], %2, [%3];\n" ::"r"(shared_address(dst)),
-            "l"(src), "r"(bytes), "r"(bar)
-            : "memory");
-}
-
-__device__ __forceinline__ void wait_phase0(uint64_t* barrier) {
-    const uint32_t bar = shared_address(barrier);
-    uint32_t done = 0;
-    do {
-        asm volatile(
-            "{\n"
-            " .reg .pred p;\n"
-            " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-            " selp.u32 %0, 1, 0, p;\n"
-            "}\n"
-            : "=r"(done)
-            : "r"(bar)
-            : "memory");
-    } while (!done);
-}
-
 // kShared: the CTA's span bulk-copied to shared memory; else each warp reads
 // its frame from device memory.
 template <bool kShared, bool kAligned>
@@ -211,30 +127,20 @@ word_cluster_kernel(const uint8_t* __restrict__ rows, int batch, int gh,
     uint32_t total;
     if constexpr (!kShared) {
         if (k >= nf) return;
-        const GlobalFrame src{rows + (f0 + k) * frame_bytes};
+        const mvt::GlobalFrame src{rows + (f0 + k) * frame_bytes};
         total = count_frame(src, 0, gh, pitch, gw, gww, y_lo, y_hi);
     } else {
         extern __shared__ __align__(16) uint8_t smem[];
         uint64_t* barrier = reinterpret_cast<uint64_t*>(smem);
-        uint8_t* data = smem + kBarrierBytes;
+        uint8_t* data = smem + mvt::kBarrierBytes;
         const uint8_t* span = rows + f0 * frame_bytes;
         const int len = static_cast<int>(nf * frame_bytes);
-        const int head = static_cast<int>(
-            reinterpret_cast<uintptr_t>(span) & 15);
-        // [a, d): the span's 16-byte-aligned middle, as offsets into it
-        const int a = min((16 - head) & 15, len);
-        const int d = max(a, ((head + len) & ~15) - head);
-        if (threadIdx.x == 0)
-            bulk_copy(data + head + a, span + a, d - a, barrier);
-        for (int i = threadIdx.x; i < a; i += blockDim.x)
-            data[head + i] = span[i];
-        for (int i = d + threadIdx.x; i < len; i += blockDim.x)
-            data[head + i] = span[i];
+        const int head = mvt::load_span(span, len, data, barrier);
         __syncthreads();
         if (k >= nf) return;  // warp 0, which issued the copy, stays
-        wait_phase0(barrier);
-        const SharedSpan<kAligned> src{reinterpret_cast<const uint32_t*>(data),
-                                       data, head};
+        mvt::wait_phase0(barrier);
+        const mvt::SharedSpan<kAligned> src{
+            reinterpret_cast<const uint32_t*>(data), data, head};
         total = count_frame(src, static_cast<int>(k * frame_bytes), gh, pitch,
                             gw, gww, y_lo, y_hi);
     }
@@ -304,14 +210,8 @@ extern "C" int mvt_word_cluster_counts(const void* rows, int batch, int gh,
             device, &optin);
     if (err != cudaSuccess) return static_cast<int>(err);
 
-    // one wave of about four CTAs an SM, at most kMaxFrames frames a CTA
-    int frames = std::min(kMaxFrames, (batch + 4 * sms - 1) / (4 * sms));
-    const long long frame_bytes = static_cast<long long>(gh) * pitch;
-    const long long fit =
-        (optin - shared_bytes(0, frame_bytes)) / frame_bytes;
-    const bool shared = fit >= 1;
-    if (shared) frames = static_cast<int>(std::min<long long>(frames, fit));
-    const long long smem = shared ? shared_bytes(frames, frame_bytes) : 0;
+    const mvt::SpanLaunch span = mvt::span_launch(
+        batch, sms, optin, static_cast<long long>(gh) * pitch);
     const int y_lo = std::max(y_min, 0);
     const int y_hi = std::max(y_lo, std::min(y_max, gh));
     const uint8_t* r = static_cast<const uint8_t*>(rows);
@@ -320,10 +220,10 @@ extern "C" int mvt_word_cluster_counts(const void* rows, int batch, int gh,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool aligned =
         pitch % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % 4 == 0;
-#define MVT_LAUNCH(S, A)                                                   \
-    launch<S, A>(r, batch, gh, pitch, gw, y_lo, y_hi, need, frames, smem, \
-                 device, optin, c, m, s)
-    if (!shared) return MVT_LAUNCH(false, false);
+#define MVT_LAUNCH(S, A)                                                 \
+    launch<S, A>(r, batch, gh, pitch, gw, y_lo, y_hi, need, span.frames, \
+                 span.smem, device, optin, c, m, s)
+    if (!span.shared) return MVT_LAUNCH(false, false);
     return aligned ? MVT_LAUNCH(true, true) : MVT_LAUNCH(true, false);
 #undef MVT_LAUNCH
 }

@@ -55,6 +55,17 @@ SIGNATURES = {
                              + [_P, _L, _P, _P, _I, _P],
     # batch, gh, gw, y_min, y_max, force_global
     "mvt_mv_cluster_scratch": [_I] * 6,
+    # the bench's controls (bench/controls.py)
+    # rows, batch, gh, pitch, gw, sums, device, stream
+    "mvt_word_stream_control": [_P] + [_I] * 4 + [_P, _I, _P],
+    # luma, batch, height, width, block, gh, gw, vec, grid, device, stream
+    "mvt_sad_stream_control": [_P] + [_I] * 7 + [_P, _I, _P],
+    "mvt_sad_compute_control": [_P] + [_I] * 7 + [_P, _I, _P],
+    # mvs, mv_counts, batch, m, sums, device, stream
+    "mvt_mv_stream_control": [_P, _P, _I, _I, _P, _I, _P],
+    # as mvt_mv_cluster_counts
+    "mvt_mv_compute_control": [_P, _P] + [_I] * 6 + [_L] + [_I] * 3
+                              + [_P, _L, _P, _P, _I, _P],
 }
 # entry points that return long long, not int
 RESTYPES = {"mvt_mv_cluster_scratch": ctypes.c_longlong}

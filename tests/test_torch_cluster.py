@@ -218,7 +218,9 @@ class TestWrapper:
         assert set(_build.SIGNATURES) == {
             "mvt_word_cluster_counts", "mvt_cluster_map_counts",
             "mvt_sad_block_grid", "mvt_mv_cluster_counts",
-            "mvt_mv_cluster_scratch"}
+            "mvt_mv_cluster_scratch", "mvt_word_stream_control",
+            "mvt_sad_stream_control", "mvt_mv_stream_control",
+            "mvt_sad_compute_control", "mvt_mv_compute_control"}
         for src in _build.sources():
             with open(src) as f:
                 text = f.read()

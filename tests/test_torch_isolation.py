@@ -1,11 +1,12 @@
 """mvtrim_tpu_torch stands alone: it imports nothing of mvtrim_tpu or jax.
 
 Two checks.  An AST scan of every module of the port and of
-``chip_smoke.py`` finds no import of ``mvtrim_tpu`` or ``jax`` and no
-relative import that climbs out of the package.  A fresh interpreter
-imports every module of the port, runs ``python -m mvtrim_tpu_torch`` on a
-synthesized clip, its archive scan (``MVT_ARCHIVE=1``) and the tune tool
-on it (also with ``--mesh``), and finds neither package in
+``chip_smoke.py`` finds no import of ``mvtrim_tpu``, ``jax``, ``bench``
+or ``benchmarks`` and no relative import that climbs out of the package.
+A fresh interpreter imports every module of the port, runs ``python -m
+mvtrim_tpu_torch`` on a synthesized clip, its archive scan
+(``MVT_ARCHIVE=1``), the tune tool on it (also with ``--mesh``) and the
+bench's main on the CPU, and finds neither package in
 ``sys.modules`` afterwards (``mvtrim_tpu/__init__.py`` alone writes JAX
 cache variables into the environment, so even a jax-free module of that
 package must not load).
@@ -38,8 +39,10 @@ def module_name(path: str) -> str:
 
 
 def forbidden(name: str) -> bool:
-    return (name in ("mvtrim_tpu", "jax")
-            or name.startswith(("mvtrim_tpu.", "jax.")))
+    """The JAX package, jax, and the JAX package's bench (``bench.py``,
+    ``benchmarks/``)."""
+    return (name in ("mvtrim_tpu", "jax", "bench", "benchmarks")
+            or name.startswith(("mvtrim_tpu.", "jax.", "benchmarks.")))
 
 
 @pytest.mark.parametrize("path", port_files(),
@@ -66,7 +69,9 @@ def test_modules_are_scanned():
     for must in ("mvtrim_tpu_torch/core/config.py",
                  "mvtrim_tpu_torch/io/native.py",
                  "mvtrim_tpu_torch/ops/mv_vote.py",
-                 "mvtrim_tpu_torch/tools/tune.py", "chip_smoke.py"):
+                 "mvtrim_tpu_torch/tools/tune.py",
+                 "mvtrim_tpu_torch/bench/controls.py",
+                 "mvtrim_tpu_torch/bench/__main__.py", "chip_smoke.py"):
         assert must in rels
 
 
@@ -91,6 +96,8 @@ def test_nothing_of_jax_loads(tmp_path):
         "os.environ['MVT_ARCHIVE'] = '1'\n"
         f"assert main([{clip!r}, {str(tmp_path / 'arch.mp4')!r}]) == 0\n"
         "del os.environ['MVT_ARCHIVE']\n"
+        "from mvtrim_tpu_torch.bench.__main__ import main as bench\n"
+        "assert bench(['--device', 'cpu', '--quick']) == 0\n"
         f"sys.argv = ['mvtrim_tpu_torch', {clip!r},"
         f" {str(tmp_path / 'out.mp4')!r}]\n"
         "try:\n"
