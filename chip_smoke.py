@@ -44,13 +44,19 @@ its launch, where a K1 call's host time goes step by step, and the
 feeder's dispatch of one 750-frame chunk.  ``--times-only`` runs phases 1,
 2 and 5.
 
-Phase 6 holds the bench's controls C1-C5 (``mvtrim_tpu_torch/bench/
+Phase 6 holds the bench's controls C1-C10 (``mvtrim_tpu_torch/bench/
 controls.py``) to their plain versions on the card, exactly, times them
 by CUDA graph, and runs ``python -m mvtrim_tpu_torch.bench --quick``'s
 main in this process: its last line must be the headline JSON and every
 cell must pass its audit.  Its launches, counted from 0 just before it
 (a graph's capture counts each launch once), must include every kernel
-and control.
+and control.  C1-C3 are the stream controls of K1, K6 and K4+K5's
+launches, C4 and C5 their compute controls, C6-C8 C3's launch over all M
+slots (``mv_bench.py``'s ``ctrl``, ``ctrlsub``, ``ctrlmm``), C9 K4+K5's
+body without the cluster rule (``noclu``) and C10 the one-hot vote
+product's shapes on the tensor cores (``mmctrl``).  Phase 2 fails unless
+the compiler's report names every kernel and ``cuobjdump -sass`` finds
+IMMA (integer tensor-core) instructions in C10's kernel.
 """
 
 from __future__ import annotations
@@ -118,7 +124,34 @@ KERNELS = {
     "mv_compute_control": (controls.mv_compute_control,
                            "mvtrim_tpu_torch/csrc/mv_cluster.cu",
                            "benchmarks/mv_bench.py:469"),
+    # C6-C10, mv_bench.py's ctrl, ctrlsub, ctrlmm, noclu and mmctrl
+    "mv_capacity_control": (controls.mv_capacity_control,
+                            "mvtrim_tpu_torch/csrc/bench_controls.cu",
+                            "benchmarks/mv_bench.py:390"),
+    "mv_capacity_control_sub": (controls.mv_capacity_control_sub,
+                                "mvtrim_tpu_torch/csrc/bench_controls.cu",
+                                "benchmarks/mv_bench.py:397"),
+    "mv_capacity_control_mm": (controls.mv_capacity_control_mm,
+                               "mvtrim_tpu_torch/csrc/bench_controls.cu",
+                               "benchmarks/mv_bench.py:400"),
+    "mv_votes_control": (controls.mv_votes_control,
+                         "mvtrim_tpu_torch/csrc/mv_cluster.cu",
+                         "benchmarks/mv_bench.py:424"),
+    "mv_matrix_control": (controls.mv_matrix_control,
+                          "mvtrim_tpu_torch/csrc/bench_controls.cu",
+                          "benchmarks/mv_bench.py:408"),
 }
+# the entry functions of the kernels, as the compiler's report names them
+# (names carry the anonymous namespace), and C10's, which must hold IMMA
+KERNEL_FUNCTIONS = ("word_cluster_kernel", "cluster_map_kernel",
+                    "sad_block_kernel", "sad_block_resident_kernel",
+                    "mv_cluster_kernel",
+                    "mv_cluster_resident_kernel",
+                    "word_stream_control_kernel",
+                    "sad_stream_control_kernel", "mv_stream_control_kernel",
+                    "mv_capacity_control_kernel", "mv_votes_kernel",
+                    "mv_matrix_control_kernel")
+TENSOR_KERNEL = "mv_matrix_control_kernel"
 CONTROLS = tuple(controls.CONTROLS)
 # path -> the kernels it must launch
 PATH_KERNELS = {
@@ -344,8 +377,37 @@ def phase_build() -> None:
         f"{len(_build.sources())} sources, "
         f"{time.perf_counter() - t0:.3f} s to build and load "
         f"({os.path.relpath(_build.library_path())})")
-    for line in info.get("report", "").splitlines():
+    report = info.get("report", "")
+    for line in report.splitlines():
         log(f"  {line}")
+    if report:
+        missing = [k for k in KERNEL_FUNCTIONS if k not in report]
+        if missing:
+            raise AssertionError(f"the compiler's report names no {missing}")
+    sass = tensor_sass(_build.library_path())
+    imma = [ln.split("*/")[1].split(";")[0].strip() for ln in sass
+            if "IMMA" in ln]
+    if not imma:
+        raise AssertionError(f"no IMMA instruction in {TENSOR_KERNEL}'s SASS")
+    log(f"{TENSOR_KERNEL} SASS: {len(imma)} IMMA instructions of "
+        f"{len(sass)} lines, e.g. {imma[0]}")
+
+
+def tensor_sass(library: str) -> list[str]:
+    """The SASS lines of C10's kernel in the built library, by the
+    toolkit's cuobjdump (beside nvcc)."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", library], capture_output=True,
+                         text=True, check=True).stdout
+    lines, inside = [], False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = TENSOR_KERNEL in line
+        elif inside:
+            lines.append(line)
+    if not lines:
+        raise AssertionError(f"cuobjdump shows no {TENSOR_KERNEL}")
+    return lines
 
 
 # --- phase 3 ---
@@ -2278,12 +2340,14 @@ def phase_timing(rng, seed: int, card: str) -> dict:
 # --- phase 6 ---
 
 def phase_correctness_controls(seed: int) -> dict:
-    """C1-C5 vs their plain versions on the card, on the same tensors,
+    """C1-C10 vs their plain versions on the card, on the same tensors,
     exact: C1 at both pitches (the bits' 15 B at 1080p), aligned and at a
     base 1 B (bits) or 4 B (words) off, and on frames past a block's shared
     memory; C2 and C4 on SAD windows, a base 1 B off too (one-byte loads);
-    C3 and C5 at sparse and full counts, C5 also with the global
-    histogram.  Returns name -> max |kernel - plain|."""
+    C3, C5 and C6-C10 at sparse and full counts (counts 0 and above M
+    among them), C5 and C9 also with the global histogram, C10 also at
+    all-ones parity and M = 16,384 (every cell 16,384: integer, not TF32).
+    Returns name -> max |kernel - plain|."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 8)
     worst = dict.fromkeys(CONTROLS, 0)
 
@@ -2347,6 +2411,7 @@ def phase_correctness_controls(seed: int) -> dict:
     for w, h, m, b, mode in ((1920, 1080, 8192, 2048, "sparse"),
                              (1920, 1080, 8192, 777, "full"),
                              (3840, 2160, 16384, 777, "sparse"),
+                             (3840, 2160, 16384, 256, "full"),
                              (7680, 4320, 8192, 64, "sparse")):
         geom = GridGeometry.build(w, h, cfg)
         if mode == "full":
@@ -2369,19 +2434,56 @@ def phase_correctness_controls(seed: int) -> dict:
             check("mv_compute_control", got, plain, label)
             if not torch.equal(motion, (plain >= need) & (c0[0] > 0)):
                 raise AssertionError(f"mv_compute_control motion at {label}")
+        counts[3::50] = m + 9
+        check_new_mv_controls(check, mvs, counts, geom, label)
         glob = mv_ops.uses_global_histogram(geom, counts.device)
         log(f"mv_stream_control, mv_compute_control {label} (frame 0 with "
             f"its count and with none; "
-            f"{'global' if glob else 'shared-memory'} histogram): kernel "
-            f"== plain")
+            f"{'global' if glob else 'shared-memory'} histogram), C6-C10 "
+            f"(counts above M among them): kernel == plain")
+    for w, h in ((1920, 1080), (7680, 4320)):
+        geom = GridGeometry.build(w, h, cfg)
+        m = 16384
+        ones = torch.zeros((2, m, 4), dtype=torch.int16, device="cuda")
+        ones[:, :, :2] = 1
+        want = controls.mv_matrix_control_plain(ones, geom)
+        total = geom.padded_gh * geom.padded_gw * m
+        if want.tolist() != [(total + 2 ** 31) % 2 ** 32 - 2 ** 31] * 2:
+            raise AssertionError("mv_matrix_control_plain at all-ones parity")
+        check("mv_matrix_control", controls.mv_matrix_control(ones, geom),
+              want, f"{w}x{h} M={m} all-ones parity")
+        log(f"mv_matrix_control {w}x{h} M={m} all-ones parity (every cell "
+            f"{m}, the grid's sum {total}): kernel == plain")
     return worst
 
 
+def check_new_mv_controls(check, mvs, counts, geom, label) -> None:
+    """C6-C10 vs their plain versions on one MV batch."""
+    cfg = Config()
+    bound = mv_ops.threshold_bound(cfg.mv_threshold_sq)
+    sub = mvs[..., 0].contiguous()
+    check("mv_capacity_control", controls.mv_capacity_control(mvs, counts),
+          controls.mv_capacity_control_plain(mvs, counts), label)
+    check("mv_capacity_control_sub",
+          controls.mv_capacity_control_sub(mvs, counts, sub),
+          controls.mv_capacity_control_sub_plain(mvs, counts, sub), label)
+    check("mv_capacity_control_mm",
+          controls.mv_capacity_control_mm(mvs, counts),
+          controls.mv_capacity_control_mm_plain(mvs, counts), label)
+    check("mv_votes_control", controls.mv_votes_control(
+        mvs, counts, geom, bound, cfg.block_shift),
+        controls.mv_votes_control_plain(mvs, counts, geom, bound,
+                                        cfg.block_shift), label)
+    check("mv_matrix_control", controls.mv_matrix_control(mvs, geom),
+          controls.mv_matrix_control_plain(mvs, geom), label)
+
+
 def _control_time(name: str, fn, plain, inputs, per_input, nbytes: float,
-                  ops: float, card: str) -> dict:
+                  ops: float, card: str,
+                  ops_per_s: float = audit.OPS_PER_S) -> dict:
     """A control at the kernels line's shape: device time a launch by CUDA
     graph (64 launches over the rotated inputs), the plain version by
-    events, and the bound."""
+    events, and the bound (operations at ops_per_s)."""
     t = audit.graph_time(fn, inputs, max(64, len(inputs)), per_input, 3)
     if not t["checksum_ok"]:
         raise AssertionError(f"{name}: checksum of the graph's launches")
@@ -2390,7 +2492,7 @@ def _control_time(name: str, fn, plain, inputs, per_input, nbytes: float,
     if int(checksum) != audit.expected_total(per_input, len(inputs), 4):
         raise AssertionError(f"{name}: plain version's checksum")
     out = {"ms": runs[1] * 1e-3, "plain_ms": plain_ms,
-           **least_time(nbytes, ops)}
+           **least_time(nbytes, ops, ops_per_s)}
     log(f"{name} on {card}: {t['runs_us']} us a launch (CUDA graph); plain "
         f"{plain_ms * 1e3:.3f} us; bound {out['bound_ms'] * 1e3:.3f} us by "
         f"{out['bound_by']}")
@@ -2398,9 +2500,12 @@ def _control_time(name: str, fn, plain, inputs, per_input, nbytes: float,
 
 
 def phase_timing_controls(seed: int, card: str) -> dict:
-    """C1-C5 at the shapes of the kernels line: C1 on the bits payload at
-    1080p B = 2048, C2 and C4 on a 1080p SAD window, C3 and C5 at 1080p
-    M = 8192 with sparse counts, each on buffers rotated past the L2."""
+    """C1-C10 at the shapes of the kernels line: C1 on the bits payload at
+    1080p B = 2048, C2 and C4 on a 1080p SAD window, C3, C5 and C6-C10 at
+    1080p M = 8192 with sparse counts (C6-C8 and C10 read every slot
+    whatever the counts), each on buffers rotated past the L2; beside C6
+    the one PyTorch call over the same bytes, ``torch.sum`` of the fields
+    (the count add excluded)."""
     cfg = Config()
     gen = torch.Generator(device="cuda").manual_seed(seed + 9)
     out = {}
@@ -2463,8 +2568,60 @@ def phase_timing_controls(seed: int, card: str) -> dict:
         [int(controls.mv_compute_control_plain(*fc, *args)[0].sum())
          for fc in sets],
         first * 8 + b * 9, b * (first * 12 + centre_cells(geom) * 8), card)
+    out.update(time_new_mv_controls(sets, geom, rows, card))
     del sets
     torch.cuda.empty_cache()
+    return out
+
+
+def time_new_mv_controls(sets, geom: GridGeometry, rows: float,
+                         card: str) -> dict:
+    """C6-C10 over the rotated (mvs, counts) sets, C7 with a copy of each
+    set's dst_x; C6's library time (``torch.sum`` of the fields in int32
+    over the same bytes, which the port never calls) by events."""
+    cfg = Config()
+    bound = mv_ops.threshold_bound(cfg.mv_threshold_sq)
+    b, m, _ = sets[0][0].shape
+    subs = [(f, c, f[..., 0].contiguous()) for f, c in sets]
+    out = {}
+    for name, fn, plain, inputs, nbytes, ops, rate in (
+            ("mv_capacity_control", controls.mv_capacity_control,
+             controls.mv_capacity_control_plain, sets, b * (m * 8 + 8), 0.0,
+             audit.OPS_PER_S),
+            ("mv_capacity_control_sub", controls.mv_capacity_control_sub,
+             controls.mv_capacity_control_sub_plain, subs, b * (m * 10 + 8),
+             0.0, audit.OPS_PER_S),
+            ("mv_capacity_control_mm", controls.mv_capacity_control_mm,
+             controls.mv_capacity_control_mm_plain, sets, b * (m * 8 + 8),
+             0.0, audit.OPS_PER_S),
+            ("mv_votes_control",
+             lambda f, c: controls.mv_votes_control(f, c, geom, bound,
+                                                    cfg.block_shift),
+             lambda f, c: controls.mv_votes_control_plain(
+                 f, c, geom, bound, cfg.block_shift), sets,
+             rows * 8 + b * 8, rows * 12, audit.OPS_PER_S),
+            ("mv_matrix_control",
+             lambda f, c: controls.mv_matrix_control(f, geom),
+             lambda f, c: controls.mv_matrix_control_plain(f, geom), sets,
+             b * (m * 8 + 4), controls.matrix_ops(geom, b, m),
+             audit.TENSOR_INT8_OPS_PER_S)):
+        out[name] = _control_time(
+            f"{name} 1080p M={m} sparse counts",
+            lambda x, fn=fn: fn(*x), lambda x, plain=plain: plain(*x),
+            inputs, [int(plain(*x).sum()) for x in inputs], nbytes, ops,
+            card, rate)
+    del subs
+    # the same bytes as C6, the count add excluded
+    lib_ms, total = _time(
+        lambda fc: torch.sum(fc[0], dim=(1, 2), dtype=torch.int32), sets, 64)
+    per_set = [int(controls.mv_capacity_control_plain(
+        f, torch.zeros_like(c)).sum()) for f, c in sets]
+    if int(total) != audit.expected_total(per_set, len(sets), 64):
+        raise AssertionError("torch.sum of the fields differs from C6's sum")
+    out["mv_capacity_control"]["library_ms"] = lib_ms
+    log(f"torch.sum(mvs, dim=(1, 2), dtype=torch.int32) 1080p M={m} on "
+        f"{card}: {lib_ms * 1e3:.3f} us a call (events; C6's bytes, the "
+        f"count add excluded)")
     return out
 
 
@@ -2557,7 +2714,8 @@ def main() -> int:
         "max_abs_err": worst[name], "ms": times[name]["ms"],
         "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"],
-        "bound_by": times[name]["bound_by"], "library_ms": None}
+        "bound_by": times[name]["bound_by"],
+        "library_ms": times[name].get("library_ms")}
         for name, (_, source, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

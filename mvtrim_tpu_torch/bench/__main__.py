@@ -1,14 +1,14 @@
 """python -m mvtrim_tpu_torch.bench [--quick] [--seed N] [--device cuda|cpu]
 
 Times the port's kernels on the card, family by family (``words``: K1;
-``grids``: K3; ``mv``: K4+K5; ``sad``: K6 and the SAD op), each beside the
-controls of its launch and its bound, by the audit of ``audit.py``.  One
-line a cell on standard output, then, as the last line and nothing after
-it, the headline JSON: K1 on the bits payload at 1080p, B = 2048, in
-frames/s by graph timing, with the contract keys of the JAX package's
-``bench.py`` (``metric``, ``value``, ``unit``, ``impl``, ``roofline_gbps``,
-``bytes_per_frame``, ``audit``), ``control_gbps``, ``pct_of_control`` and
-one ``secondary_<family>`` object a family.
+``grids``: K3; ``mv``: K4+K5 with the controls C3, C5-C10; ``sad``: K6 and
+the SAD op), each beside the controls of its launch and its bound, by the
+audit of ``audit.py``.  One line a cell on standard output, then, as the
+last line and nothing after it, the headline JSON: K1 on the bits payload
+at 1080p, B = 2048, in frames/s by graph timing, with the contract keys of
+the JAX package's ``bench.py`` (``metric``, ``value``, ``unit``, ``impl``,
+``roofline_gbps``, ``bytes_per_frame``, ``audit``), ``control_gbps``,
+``pct_of_control`` and one ``secondary_<family>`` object a family.
 
 On the card unless ``--device cpu``, which runs the plain versions at tiny
 sizes by the host clock and labels every number ``cpu-plain``; without a
@@ -31,12 +31,21 @@ FAMILIES = {"words": words, "grids": grids, "mv": mv, "sad": sad}
 HEADLINE = ("words", "1080p B=2048 bits")
 MEASUREMENTS = {"kernel": "kernel", "op": "whole op (K6 + K3)",
                 "stream_control": "stream control",
-                "compute_control": "compute control"}
+                "compute_control": "compute control",
+                "capacity_control": "C6 capacity control",
+                "votes_control": "C9 votes control",
+                "capacity_sub_control": "C7 capacity control + sub",
+                "capacity_mm_control": "C8 capacity control, low bytes",
+                "matrix_control": "C10 tensor-core matrix control"}
+# (numerator, denominator, label): ratios of device time a line names
+RATIOS = (("kernel", "votes_control", "K4+K5 over C9"),
+          ("stream_control", "capacity_control", "C3 over C6"))
 AUDIT = ("CUDA graph of N launches over K rotated buffers (K x the bytes "
          "a launch reads >= 100 MB), device time between two events; "
          "int64 checksum of every launch's outputs against the plain "
          "PyTorch version weighted by the rotation; INVALID above 1.05 x "
-         "3.35 TB/s or on a checksum mismatch")
+         "3.35 TB/s, above 1.05 x 1,979 T/s of int8 tensor operations "
+         "(C10), or on a checksum mismatch")
 
 
 def _us(m: dict) -> str:
@@ -53,6 +62,15 @@ def _share(control: dict, kernel: dict) -> float | None:
     kernel µs, in percent."""
     if kernel["valid"] and control["valid"]:
         return 100.0 * control["us"] / kernel["us"]
+    return None
+
+
+def _ratio(cell: dict, num: str, den: str) -> float | None:
+    """µs of measurement num over µs of den, where the cell has both
+    valid."""
+    if num in cell and den in cell and cell[num]["valid"] and \
+            cell[den]["valid"]:
+        return cell[num]["us"] / cell[den]["us"]
     return None
 
 
@@ -95,7 +113,16 @@ def describe(cell: dict, card: str) -> str:
         share = _share(m, k)
         if name == "stream_control" and share is not None:
             text += f" (the kernel at {share:.1f}% of its rate)"
+        if "pct_of_ops_peak" in m and m["valid"] and \
+                m["pct_of_ops_peak"] is not None:
+            text += (f" ({m['implied_tops']:.1f} T operations/s = "
+                     f"{m['pct_of_ops_peak']:.1f}% of the peak)")
+        text += f", bound {m['bound_us']:.3f} us by {m['bound_by']}"
         parts.append(text)
+    for num, den, label in RATIOS:
+        r = _ratio(cell, num, den)
+        if r is not None:
+            parts.append(f"{label} {r:.3f}")
     parts.append(f"bound {cell['bound_us']:.3f} us by {cell['bound_by']}")
     ok = all(cell[name]["checksum_ok"] for name in MEASUREMENTS
              if name in cell)
@@ -119,13 +146,17 @@ def summary(cell: dict) -> dict:
             out[key] = k[key]
     if _gap(k) is not None:
         out["graph_gap_us"] = _gap(k)
-    for name in ("op", "stream_control", "compute_control"):
-        if name in cell:
+    for name in MEASUREMENTS:
+        if name != "kernel" and name in cell:
             out[f"{name}_us"] = cell[name]["us"]
             if cell[name].get("profiler_us") is not None:
                 out[f"{name}_profiler_us"] = cell[name]["profiler_us"]
+            out[f"{name}_bound_us"] = cell[name]["bound_us"]
     if "stream_control" in cell:
         out["pct_of_control"] = _share(cell["stream_control"], k)
+    for num, den, label in RATIOS:
+        if _ratio(cell, num, den) is not None:
+            out[f"{num}_over_{den}"] = _ratio(cell, num, den)
     return out
 
 

@@ -3,10 +3,11 @@ the roofline gate.
 
 * **Bytes and bounds.**  ``least_time`` is the least time the card could
   take for a function: the larger of its bytes (each input read once, each
-  output written once) over the HBM rate and its 32-bit integer operations
-  over the peak rate.  ``rows_bytes``, ``map_bytes`` and ``word_bound``
-  count the cluster kernels' bytes; ``chip_smoke.py`` reckons with the same
-  functions.
+  output written once) over the HBM rate and its operations over the peak
+  rate of their type (32-bit integer operations by default, the tensor
+  cores' int8 rate for C10).  ``rows_bytes``, ``map_bytes`` and
+  ``word_bound`` count the cluster kernels' bytes; ``chip_smoke.py``
+  reckons with the same functions.
 * **Device time a launch.**  ``graph_time`` captures N launches over K
   rotated input buffers (K x the bytes a launch reads >= 100 MB, twice the
   H100's 50 MB L2) in one CUDA graph and times its replay between two
@@ -20,8 +21,9 @@ the roofline gate.
   per-buffer sums weighted by the rotation (``expected_total``): a launch
   that did not run, or ran on the wrong buffer, fails it.
 * **Roofline gate.**  A measurement whose implied rate exceeds 1.05 x the
-  card's 3.35 TB/s, or whose checksum fails, is INVALID and yields no
-  value (``gate``).
+  card's 3.35 TB/s, or 1.05 x the peak rate of the operations it is given
+  (a tensor-core control that "beats" the int8 rate has skipped tiles), or
+  whose checksum fails, is INVALID and yields no value (``gate``).
 
 ``Run`` carries what one bench run measures on: the device, the card's
 name and power limit, and the depth.  On ``--device cpu`` the same code
@@ -47,15 +49,18 @@ from ..ops import cluster as cluster_ops
 # bound stays a lower bound)
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+# the dense int8 tensor-core rate (the same data sheet, no sparsity)
+TENSOR_INT8_OPS_PER_S = 1979e12
 ROOFLINE_SLACK = 1.05
 ROTATED_BYTES = 100e6   # twice the H100's 50 MB L2
 CPU_LABEL = "cpu-plain"
 
 
-def least_time(nbytes: float, ops: float) -> dict:
+def least_time(nbytes: float, ops: float,
+               ops_per_s: float = OPS_PER_S) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the HBM rate and the operations over the peak rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / OPS_PER_S
+    the HBM rate and the operations over their peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     return {"bound_ms": max(t_bytes, t_ops) * 1e3,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -122,15 +127,22 @@ def launches(run: "Run", k: int, full: int) -> int:
     return max(k, QUICK_LAUNCHES if run.quick else full)
 
 
-def gate(seconds: float | None, nbytes: float, checksum_ok: bool) -> dict:
-    """The implied rate of nbytes in seconds against the HBM roofline: the
-    measurement is valid when its checksum holds and the rate is at most
-    ROOFLINE_SLACK x the card's."""
+def gate(seconds: float | None, nbytes: float, checksum_ok: bool,
+         ops: float | None = None, ops_per_s: float = OPS_PER_S) -> dict:
+    """The implied rate of nbytes in seconds against the HBM roofline, and
+    of ops (where given) against ops_per_s: the measurement is valid when
+    its checksum holds and each rate is at most ROOFLINE_SLACK x its
+    peak."""
     implied = nbytes / seconds if seconds else float("inf")
     valid = checksum_ok and implied <= HBM_BYTES_PER_S * ROOFLINE_SLACK
-    return {"implied_gbps": implied / 1e9,
-            "pct_of_roofline": 100.0 * implied / HBM_BYTES_PER_S,
-            "checksum_ok": bool(checksum_ok), "valid": bool(valid)}
+    out = {"implied_gbps": implied / 1e9,
+           "pct_of_roofline": 100.0 * implied / HBM_BYTES_PER_S}
+    if ops is not None:
+        rate = ops / seconds if seconds else float("inf")
+        valid = valid and rate <= ops_per_s * ROOFLINE_SLACK
+        out.update(implied_tops=rate / 1e12,
+                   pct_of_ops_peak=100.0 * rate / ops_per_s)
+    return {**out, "checksum_ok": bool(checksum_ok), "valid": bool(valid)}
 
 
 def card_name() -> str:
@@ -271,12 +283,14 @@ def host_time(fn, inputs, iters: int = 256) -> float:
 
 
 def measure(run: Run, fn, inputs, per_input, *, n: int, nbytes: float,
-            frames: int, kernel: str | None) -> dict:
+            frames: int, kernel: str | None, ops: float | None = None,
+            ops_per_s: float = OPS_PER_S) -> dict:
     """One audited measurement of fn over the rotated inputs: µs a launch
-    (the median of the replays), frames/s, the implied rate of nbytes a
-    launch against the roofline, the checksum; on the card also the
-    profiler's device µs (kernel: the name in the trace; skipped with
-    --quick) and the host's µs a call."""
+    (the median of the replays), frames/s, the implied rate of nbytes (and
+    of ops at ops_per_s, where given) a launch against its peak, the bound
+    of that work, the checksum; on the card also the profiler's device µs
+    (kernel: the name in the trace; skipped with --quick) and the host's
+    µs a call."""
     reps = 1 if run.quick else 3
     if run.cpu:
         t = host_clock_time(fn, inputs, n, per_input, reps)
@@ -284,15 +298,20 @@ def measure(run: Run, fn, inputs, per_input, *, n: int, nbytes: float,
         t = graph_time(fn, inputs, n, per_input, reps)
     runs = sorted(t["runs_us"])
     us = runs[len(runs) // 2]
+    bound = least_time(nbytes, ops or 0.0, ops_per_s)
     out = {"runs_us": t["runs_us"], "launches": n, "buffers": len(inputs),
            "nbytes": nbytes, "timing": run.timing,
-           **gate(us * 1e-6, nbytes, t["checksum_ok"])}
+           "bound_us": bound["bound_ms"] * 1e3, "bound_by": bound["bound_by"],
+           **gate(us * 1e-6, nbytes, t["checksum_ok"], ops, ops_per_s)}
     # an INVALID measurement yields no value; the host's rate of the plain
     # versions is not the card's
     out["us"] = us if out["valid"] else None
     out["frames_per_s"] = frames / us * 1e6 if out["valid"] else None
     if run.cpu:
-        out["implied_gbps"] = out["pct_of_roofline"] = None
+        for key in ("implied_gbps", "pct_of_roofline", "implied_tops",
+                    "pct_of_ops_peak"):
+            if key in out:
+                out[key] = None
     else:
         out["host_us"] = host_time(fn, inputs, 64)
         if kernel is not None and not run.quick:

@@ -1,7 +1,8 @@
-"""The bench's controls: C1-C5, with their plain PyTorch versions.
+"""The bench's controls: C1-C10, with their plain PyTorch versions.
 
 A control is measured beside a product kernel and answers what that
-kernel's launch could do at best on the card:
+kernel's launch could do at best on the card, or what one stage of it
+costs:
 
 * the stream controls (``csrc/bench_controls.cu``) keep a product kernel's
   launch (grid, CTA shape, frames a CTA, load width), read every byte it
@@ -15,6 +16,19 @@ kernel's launch could do at best on the card:
   ``mv_compute_control``) instantiated a second time with the frame index
   held at one resident frame, so the same loads and arithmetic run from
   the L2: their rate is the arithmetic ceiling of the product body.
+* the capacity controls (``csrc/bench_controls.cu``) are C3's launch over
+  all M slots a frame, as ``benchmarks/mv_bench.py``'s TPU controls read
+  them: C6 ``mv_capacity_control`` (``ctrl``), C7
+  ``mv_capacity_control_sub`` (``ctrlsub``, a second copy of dst_x), C8
+  ``mv_capacity_control_mm`` (``ctrlmm``, the fields' low bytes).  C6
+  against C3 is what reading by capacity, not by count, costs.
+* C9 ``mv_votes_control`` (``noclu``) is K4+K5's body a third time with
+  the vote scatter kept and the cluster rule dropped: K4+K5 against C9 is
+  the rule's share.
+* C10 ``mv_matrix_control`` (``mmctrl``) runs the shapes of the TPU's
+  one-hot vote product on the tensor cores (int8 operands, int32 sums):
+  what the scatter as a matrix product would cost on the card.  C5, not
+  C10, is K4+K5's compute control.
 
 Each wrapper checks its inputs as the product wrapper does; a CUDA tensor
 launches its kernel (counted on ``<wrapper>.launches``), a CPU tensor runs
@@ -240,6 +254,180 @@ def mv_compute_control(mvs: torch.Tensor, counts: torch.Tensor,
 
 mv_compute_control.launches = 0
 
+
+# --- C6, C7, C8: C3's launch over all M slots ---
+
+def _wrapped(total: torch.Tensor) -> torch.Tensor:
+    return mv_ops._wrap_int32(total).to(torch.int32)
+
+
+def mv_capacity_control_plain(mvs: torch.Tensor,
+                              counts: torch.Tensor) -> torch.Tensor:
+    """mvs int16 [B, M, 4] + counts int32 [B] -> int32 [B]: count[b] plus
+    the sum of the four fields of every slot k < M, whatever the count
+    (mv_bench.py's ctrl), wrapped to int32."""
+    return _wrapped(mvs.sum(dim=(1, 2), dtype=torch.int64)
+                    + counts.to(torch.int64))
+
+
+def mv_capacity_control_sub_plain(mvs: torch.Tensor, counts: torch.Tensor,
+                                  sub: torch.Tensor) -> torch.Tensor:
+    """``mv_capacity_control_plain`` plus the sum of sub int16 [B, M] (a
+    second copy of dst_x: mv_bench.py's ctrlsub), wrapped to int32."""
+    return _wrapped(mvs.sum(dim=(1, 2), dtype=torch.int64)
+                    + sub.sum(dim=1, dtype=torch.int64)
+                    + counts.to(torch.int64))
+
+
+# the largest M at which the TPU's ctrlmm is exact: its bf16 ones-matmul
+# sums in float32, exact while 4 * 255 * M < 2^24
+MM_EXACT_M = 16448
+
+
+def mv_capacity_control_mm_plain(mvs: torch.Tensor,
+                                 counts: torch.Tensor) -> torch.Tensor:
+    """mvs int16 [B, M, 4] + counts int32 [B] -> int32 [B]: count[b] plus
+    the sum over every slot k < M of (v & 255) of each field (so -3 adds
+    253), in integers, wrapped to int32.  mv_bench.py's ctrlmm computes the
+    same in float32 and is exact only while 4 * 255 * M < 2^24, that is M
+    <= MM_EXACT_M = 16,448 (the bench's 4K capacity, 16,384, is inside)."""
+    return _wrapped((mvs & 255).sum(dim=(1, 2), dtype=torch.int64)
+                    + counts.to(torch.int64))
+
+
+def _capacity(counter, mode: int, mvs: torch.Tensor, counts: torch.Tensor,
+              sub: torch.Tensor | None = None) -> torch.Tensor:
+    sums = mvs.new_empty((mvs.shape[0],), dtype=torch.int32)
+    _build.launch("mvt_mv_capacity_control", counter, mvs.device,
+                  mvs.data_ptr(), counts.data_ptr(),
+                  None if sub is None else sub.data_ptr(), mvs.shape[0],
+                  mvs.shape[1], mode, sums.data_ptr())
+    return sums
+
+
+def mv_capacity_control(mvs: torch.Tensor,
+                        counts: torch.Tensor) -> torch.Tensor:
+    """K4+K5's payload -> int32 [B], C3's launch over all M slots
+    (``mv_capacity_control_plain``)."""
+    mv_ops._check_mvs(mvs, counts)
+    if _on(mvs, "mv_capacity_control") == "cpu":
+        return mv_capacity_control_plain(mvs, counts)
+    return _capacity(mv_capacity_control, 0, mvs, counts)
+
+
+mv_capacity_control.launches = 0
+
+
+def mv_capacity_control_sub(mvs: torch.Tensor, counts: torch.Tensor,
+                            sub: torch.Tensor) -> torch.Tensor:
+    """K4+K5's payload and sub int16 [B, M] (the caller's copy of dst_x),
+    contiguous on the same device -> int32 [B]
+    (``mv_capacity_control_sub_plain``)."""
+    mv_ops._check_mvs(mvs, counts)
+    if sub.dtype != torch.int16:
+        raise TypeError(f"sub must be int16, got {sub.dtype}")
+    if tuple(sub.shape) != tuple(mvs.shape[:2]):
+        raise ValueError(f"sub must be [{mvs.shape[0]}, {mvs.shape[1]}], "
+                         f"got {tuple(sub.shape)}")
+    if sub.device != mvs.device:
+        raise ValueError(f"sub on {sub.device}, mvs on {mvs.device}")
+    if not sub.is_contiguous():
+        raise ValueError("sub must be contiguous")
+    if _on(mvs, "mv_capacity_control_sub") == "cpu":
+        return mv_capacity_control_sub_plain(mvs, counts, sub)
+    return _capacity(mv_capacity_control_sub, 1, mvs, counts, sub)
+
+
+mv_capacity_control_sub.launches = 0
+
+
+def mv_capacity_control_mm(mvs: torch.Tensor,
+                           counts: torch.Tensor) -> torch.Tensor:
+    """K4+K5's payload -> int32 [B] (``mv_capacity_control_mm_plain``)."""
+    mv_ops._check_mvs(mvs, counts)
+    if _on(mvs, "mv_capacity_control_mm") == "cpu":
+        return mv_capacity_control_mm_plain(mvs, counts)
+    return _capacity(mv_capacity_control_mm, 2, mvs, counts)
+
+
+mv_capacity_control_mm.launches = 0
+
+
+# --- C9: K4+K5's vote scatter without the rule ---
+
+def mv_votes_control_plain(mvs: torch.Tensor, counts: torch.Tensor,
+                           geom: GridGeometry, bound: int,
+                           block_shift: int) -> torch.Tensor:
+    """int32 [B]: each frame's kept MVs by K4+K5's keep rule
+    (``mv_vote.keep_mask``), the sum of its votes (mv_bench.py's noclu):
+    0 for a count <= 0, M slots read for a count above M."""
+    keep, _, _ = mv_ops.keep_mask(mvs, counts, geom, bound, block_shift)
+    return keep.sum(dim=1, dtype=torch.int64).to(torch.int32)
+
+
+def mv_votes_control(mvs: torch.Tensor, counts: torch.Tensor,
+                     geom: GridGeometry, bound: int,
+                     block_shift: int) -> torch.Tensor:
+    """K4+K5's payload, geometry, bound and shift -> int32 [B] from its
+    body with the vote scatter kept and the rule dropped
+    (``mv_votes_control_plain``)."""
+    mv_ops._check_mvs(mvs, counts)
+    bound = max(-(1 << 63), min(int(bound), (1 << 63) - 1))
+    if _on(mvs, "mv_votes_control") == "cpu":
+        return mv_votes_control_plain(mvs, counts, geom, bound, block_shift)
+    b, m, _ = mvs.shape
+    dev = mvs.device
+    sums = mvs.new_empty((b,), dtype=torch.int32)
+    cells = mv_ops._scratch_cells(b, geom, mv_ops._device_index(dev), False)
+    scratch = torch.empty((cells,), dtype=torch.int32, device=dev) \
+        if cells else None
+    _build.launch("mvt_mv_votes_control", mv_votes_control, dev,
+                  mvs.data_ptr(), counts.data_ptr(), b, m, geom.gh, geom.gw,
+                  geom.y_min, geom.y_max, bound, block_shift,
+                  None if scratch is None else scratch.data_ptr(), cells,
+                  sums.data_ptr())
+    return sums
+
+
+mv_votes_control.launches = 0
+
+
+# --- C10: the vote product's shapes on the tensor cores ---
+
+def matrix_ops(geom: GridGeometry, b: int, m: int) -> int:
+    """Tensor operations of C10 for b frames of M slots: 2 gh_p gw_p M_32
+    a frame, M_32 being M rounded up to a multiple of 32 (the mma's
+    depth)."""
+    return 2 * geom.padded_gh * geom.padded_gw * (-(-m // 32) * 32) * b
+
+
+def mv_matrix_control_plain(mvs: torch.Tensor,
+                            geom: GridGeometry) -> torch.Tensor:
+    """mvs int16 [B, M, 4] -> int32 [B]: gh_p * gw_p * sum over every slot
+    k < M of ((dst_x ^ src_x) & (dst_y ^ src_y) & 1), in int64 and
+    wrapped to int32, the closed form of mv_bench.py's mmctrl (every cell
+    of its [gh_p, gw_p] product holds the sum)."""
+    parity = (mvs[..., 0] ^ mvs[..., 2]) & (mvs[..., 1] ^ mvs[..., 3]) & 1
+    return _wrapped(parity.sum(dim=1, dtype=torch.int64)
+                    * (geom.padded_gh * geom.padded_gw))
+
+
+def mv_matrix_control(mvs: torch.Tensor, geom: GridGeometry) -> torch.Tensor:
+    """mvs int16 [B, M, 4] (counts play no part) -> int32 [B] by one
+    s8 x s8 -> s32 tensor-core product a frame, every tile of it issued
+    (``mv_matrix_control_plain``)."""
+    mv_ops._check_mvs(mvs, None)
+    if _on(mvs, "mv_matrix_control") == "cpu":
+        return mv_matrix_control_plain(mvs, geom)
+    sums = mvs.new_empty((mvs.shape[0],), dtype=torch.int32)
+    _build.launch("mvt_mv_matrix_control", mv_matrix_control, mvs.device,
+                  mvs.data_ptr(), mvs.shape[0], mvs.shape[1],
+                  geom.padded_gh, geom.padded_gw, sums.data_ptr())
+    return sums
+
+
+mv_matrix_control.launches = 0
+
 # name -> the wrapper whose count shows a launch
 CONTROLS = {
     "word_stream_control": word_stream_control,
@@ -247,4 +435,9 @@ CONTROLS = {
     "mv_stream_control": mv_stream_control,
     "sad_compute_control": sad_compute_control,
     "mv_compute_control": mv_compute_control,
+    "mv_capacity_control": mv_capacity_control,
+    "mv_capacity_control_sub": mv_capacity_control_sub,
+    "mv_capacity_control_mm": mv_capacity_control_mm,
+    "mv_votes_control": mv_votes_control,
+    "mv_matrix_control": mv_matrix_control,
 }

@@ -1,6 +1,11 @@
 """The mv family: K4+K5 (``csrc/mv_cluster.cu``) beside C3, the stream
-control of its launch, C5, its body over one resident frame, and its
-bound.
+control of its launch, C5, its body over one resident frame, C6, C3's
+launch over all M slots (capacity, not count), C9, its body without the
+cluster rule, and its bound; at full counts also C7 and C8 (C6 with a
+second dst_x stream, with the fields' low bytes) and C10, the one-hot vote
+product's shapes on the tensor cores.  Each cell's line names K4+K5 over
+C9 (the whole body against its vote scatter: what the rule adds) and C3
+over C6 (reading by count against reading by capacity).
 
 The port's counterpart of ``benchmarks/mv_bench.py`` and of ``bench.py``'s
 fused-MV secondary: B = 2048 frames a launch at 1080p (capacity M = 8192)
@@ -52,6 +57,36 @@ def draw(gen: torch.Generator, b: int, m: int, width: int, height: int,
     return mvs, counts
 
 
+def full_count_controls(r: audit.Run, inputs, geom: GridGeometry,
+                        n: int) -> dict:
+    """C7, C8 and C10 over the rotated inputs (none depends on the
+    counts): C7 with a contiguous copy of each input's dst_x."""
+    b, m, _ = inputs[0][0].shape
+    subs = [(f, c, f[..., 0].contiguous()) for f, c in inputs]
+
+    def matrix(fc):
+        return controls.mv_matrix_control(fc[0], geom)
+
+    return {
+        "capacity_sub_control": audit.measure(
+            r, lambda fcs: controls.mv_capacity_control_sub(*fcs), subs,
+            [int(controls.mv_capacity_control_sub_plain(*fcs).sum())
+             for fcs in subs], n=n, nbytes=b * (m * 10 + 8), frames=b,
+            kernel="mv_capacity_control_kernel"),
+        "capacity_mm_control": audit.measure(
+            r, lambda fc: controls.mv_capacity_control_mm(*fc), inputs,
+            [int(controls.mv_capacity_control_mm_plain(*fc).sum())
+             for fc in inputs], n=n, nbytes=b * (m * 8 + 8), frames=b,
+            kernel="mv_capacity_control_kernel"),
+        "matrix_control": audit.measure(
+            r, matrix, inputs,
+            [int(controls.mv_matrix_control_plain(f, geom).sum())
+             for f, _ in inputs], n=n, nbytes=b * (m * 8 + 4), frames=b,
+            kernel="mv_matrix_control_kernel",
+            ops=controls.matrix_ops(geom, b, m),
+            ops_per_s=audit.TENSOR_INT8_OPS_PER_S)}
+
+
 def run(r: audit.Run) -> list[dict]:
     cfg = Config()
     bnd = mv_ops.threshold_bound(cfg.mv_threshold_sq)
@@ -79,6 +114,9 @@ def run(r: audit.Run) -> list[dict]:
             return controls.mv_compute_control(fc[0], fc[1], geom, bnd, vec,
                                                need, shift)[0]
 
+        def votes(fc, geom=geom):
+            return controls.mv_votes_control(fc[0], fc[1], geom, bnd, shift)
+
         ref = [int(mv_ops.mv_cluster_counts_plain(
             f, c, geom, bnd, vec, shift).sum()) for f, c in inputs]
         ctrl_ref = [int(controls.mv_stream_control_plain(f, c).sum())
@@ -87,7 +125,8 @@ def run(r: audit.Run) -> list[dict]:
             f, c, geom, bnd, vec, need, shift)[0].sum()) for f, c in inputs]
         n = audit.launches(r, k, LAUNCHES)
         # each launch reads the rows below the counts and the counts, and
-        # writes 5 bytes a frame (4 for the stream control)
+        # writes 5 bytes a frame (4 for the controls); the capacity controls
+        # read all M slots
         out = {
             "kernel": audit.measure(
                 r, kernel, inputs, ref, n=n, nbytes=rows * 8 + b * 9,
@@ -99,7 +138,20 @@ def run(r: audit.Run) -> list[dict]:
             "compute_control": audit.measure(
                 r, compute, inputs, comp_ref, n=n,
                 nbytes=first * 8 + 4 + b * 5, frames=b,
-                kernel="mv_cluster_resident_kernel")}
+                kernel="mv_cluster_resident_kernel"),
+            "capacity_control": audit.measure(
+                r, lambda fc: controls.mv_capacity_control(*fc), inputs,
+                [int(controls.mv_capacity_control_plain(*fc).sum())
+                 for fc in inputs], n=n, nbytes=b * (m * 8 + 8), frames=b,
+                kernel="mv_capacity_control_kernel"),
+            "votes_control": audit.measure(
+                r, votes, inputs,
+                [int(controls.mv_votes_control_plain(
+                    f, c, geom, bnd, shift).sum()) for f, c in inputs],
+                n=n, nbytes=rows * 8 + b * 8, frames=b,
+                kernel="mv_votes_kernel", ops=rows * 12)}
+        if counts_mode == "full":
+            out.update(full_count_controls(r, inputs, geom, n))
         # about 12 integer operations an MV (two differences, two products,
         # a sum, the bound, two shifts, four range tests) and 8 a centre
         # cell (the rule's 7 and the histogram's zeroing)

@@ -29,18 +29,42 @@
 // first frame, one block of B frames).  The carry's bits of frames b > 0 are
 // loaded and masked to zero, so every CTA reads both planes.
 //
-// C3 mvt_mv_stream_control replaces mv_bench.py's ctrl and follows K4+K5
-// (mv_cluster.cu): one 512-thread CTA a frame, one 8-byte short4 load an
-// MV, eight in flight a thread, and a loop bound equal to the count:
+// C3 mvt_mv_stream_control follows K4+K5 (mv_cluster.cu): one 512-thread
+// CTA a frame, one 8-byte short4 load an MV, eight in flight a thread, and
+// a loop bound equal to the count:
 //   sums[b] = count[b] + sum over k < min(count[b], M) of
 //             dst_x + dst_y + src_x + src_y,
-// widened to 32 bits and wrapped mod 2^32.  At full counts that is the TPU
-// control's per-frame sum (which reads all M slots); at sparse counts the
-// TPU control still reads every slot while this launch, like K4+K5, reads
-// only the rows below the count.
+// widened to 32 bits and wrapped mod 2^32.  It equals mv_bench.py's ctrl
+// at full counts only: like K4+K5 it reads only the rows below the count.
 //
-// What bounds them: bytes, as their product kernels at those launches; the
-// arithmetic is a mask, an add or a popcount a load.
+// C6-C8 mvt_mv_capacity_control replace mv_bench.py's ctrl, ctrlsub and
+// ctrlmm: C3's launch with the loop bound M, not the count, since the TPU
+// controls read every slot.  The payload ships M slots a frame whatever
+// the count, so C6 against C3 is what reading by capacity costs.
+//   C6 (ctrl)     sums[b] = count[b] + sum over k < M of the four fields;
+//   C7 (ctrlsub)  C6 + sum over k < M of sub[b, k], a second copy of dst_x
+//                 (int16 [B, M]) that the caller fills; on the TPU it was a
+//                 sublane-major [M, 1] stream, here it is contiguous and
+//                 read by consecutive threads, so no layout is imitated;
+//   C8 (ctrlmm)   count[b] + sum over k < M of (v & 255) of each field.
+// All widened to 32 bits and wrapped mod 2^32.  The TPU's ctrlmm summed by
+// a bf16 ones-matmul to keep the vector unit idle; here a mask and an add
+// a field is already the least, so C8 uses no tensor core.
+//
+// C10 mvt_mv_matrix_control replaces mv_bench.py's mmctrl: the shapes of
+// the TPU's one-hot vote product on the tensor cores, with the operands
+// reduced to parity bits.  Per frame, over all M slots,
+//   a_k = (dst_x ^ src_x) & 1,  b_k = (dst_y ^ src_y) & 1,
+// the product of the [gw_p x M] matrix whose rows are all a with the
+// [M x gh_p] matrix whose columns are all b, summed over its gw_p x gh_p
+// cells and wrapped to int32: gh_p * gw_p * sum_k a_k b_k.  Integer on
+// the tensor cores (mma.sync m16n8k32, s8 x s8 -> s32), never TF32; exact,
+// each cell is at most M.
+//
+// What bounds them: C1-C3 and C6-C8 bytes, as their product kernels at
+// those launches (the arithmetic is a mask, an add or a popcount a load);
+// C10 the tensor cores' int8 rate (2 gh_p gw_p M B operations against
+// 8 M B bytes).
 
 #include <algorithm>
 #include <atomic>
@@ -258,6 +282,119 @@ mv_stream_control_kernel(const short4* __restrict__ mvs,
         sums[b] = static_cast<int32_t>(total + static_cast<uint32_t>(count));
 }
 
+// --- C6, C7, C8: K4+K5's launch over all M slots ---
+
+enum class Capacity { kSum, kSub, kLowBytes };  // C6, C7, C8
+
+template <Capacity kMode>
+__global__ void __launch_bounds__(kMvThreads)
+mv_capacity_control_kernel(const short4* __restrict__ mvs,
+                           const int32_t* __restrict__ mv_counts,
+                           const int16_t* __restrict__ sub, int m,
+                           int32_t* __restrict__ sums) {
+    __shared__ uint32_t warp_sums[32];
+    const int b = blockIdx.x;
+    const short4* f = mvs + static_cast<size_t>(b) * m;
+    uint32_t total = 0;
+#pragma unroll 8
+    for (int k = threadIdx.x; k < m; k += kMvThreads) {
+        const short4 mv = __ldg(f + k);
+        if constexpr (kMode == Capacity::kLowBytes)
+            total += static_cast<uint32_t>((mv.x & 255) + (mv.y & 255) +
+                                           (mv.z & 255) + (mv.w & 255));
+        else
+            total += static_cast<uint32_t>(static_cast<int>(mv.x) + mv.y +
+                                           mv.z + mv.w);
+        if constexpr (kMode == Capacity::kSub)
+            total += static_cast<uint32_t>(static_cast<int>(
+                __ldg(sub + static_cast<size_t>(b) * m + k)));
+    }
+    total = mvt::block_sum(total, warp_sums);
+    if (threadIdx.x == 0)
+        sums[b] = static_cast<int32_t>(
+            total + static_cast<uint32_t>(mv_counts[b]));
+}
+
+// --- C10: the vote product's shapes on the tensor cores ---
+
+// A CTA a frame of kMatrixWarps warps; warp w takes the frame's k-steps of
+// 32 slots w, w + kMatrixWarps, ...  Each lane loads one MV of the step
+// (consecutive lanes on consecutive MVs), two ballots gather the step's
+// 32 a and 32 b bits, and each thread expands the bits at its own k
+// positions into the s8 fragments: every row of A is a and every column of
+// B is b, so one fragment pair serves every output tile.  The warp then
+// issues an mma for every one of the gw_p / 16 x gh_p / 8 tiles of the
+// output, into kMatrixAcc accumulators in turn (independent chains to
+// hide the mma's latency); the accumulators' sum over the CTA is the sum
+// of the output's cells.
+constexpr int kMatrixWarps = 4;
+constexpr int kMatrixAcc = 8;
+
+// Four bits -> four bytes of 0 or 1, bit i in byte i (element i of an s8
+// fragment register is its byte i).
+__device__ __forceinline__ uint32_t bit_bytes(uint32_t bits, int shift) {
+    return (((bits >> shift) & 15u) * 0x00204081u) & 0x01010101u;
+}
+
+// c += A (16 x 32, every row the k-vector a) x B (32 x 8, every column b):
+// a thread holds elements k = 4t..4t+3 (lo) and 16+4t..16+4t+3 (hi) of
+// both, t = lane % 4; A's registers 0 and 1 (rows g and g + 8) are the
+// same, as are 2 and 3.
+__device__ __forceinline__ void mma_parity(int (&c)[4], uint32_t a_lo,
+                                           uint32_t a_hi, uint32_t b_lo,
+                                           uint32_t b_hi) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a_lo), "r"(a_lo), "r"(a_hi), "r"(a_hi), "r"(b_lo),
+          "r"(b_hi));
+}
+
+// One MV of a k-step, zeros past M.
+__device__ __forceinline__ short4 step_mv(const short4* f, int step, int m) {
+    const int k = step * 32 + (threadIdx.x & 31);
+    return k < m ? __ldg(f + k) : make_short4(0, 0, 0, 0);
+}
+
+__global__ void __launch_bounds__(32 * kMatrixWarps)
+mv_matrix_control_kernel(const short4* __restrict__ mvs, int m,
+                         int tile_groups, int32_t* __restrict__ sums) {
+    __shared__ uint32_t warp_sums[32];
+    const short4* f = mvs + static_cast<size_t>(blockIdx.x) * m;
+    const int t4 = (threadIdx.x & 3) * 4;
+    const int steps = (m + 31) >> 5;
+    int acc[kMatrixAcc][4] = {};
+    int step = threadIdx.x >> 5;
+    short4 next = step_mv(f, step, m);
+    for (; step < steps; step += kMatrixWarps) {
+        const short4 mv = next;
+        next = step_mv(f, step + kMatrixWarps, m);
+        const uint32_t abits = __ballot_sync(kFullMask, (mv.x ^ mv.z) & 1);
+        const uint32_t bbits = __ballot_sync(kFullMask, (mv.y ^ mv.w) & 1);
+        const uint32_t a_lo = bit_bytes(abits, t4);
+        const uint32_t a_hi = bit_bytes(abits, 16 + t4);
+        const uint32_t b_lo = bit_bytes(bbits, t4);
+        const uint32_t b_hi = bit_bytes(bbits, 16 + t4);
+        for (int g = 0; g < tile_groups; ++g) {
+#pragma unroll
+            for (int j = 0; j < kMatrixAcc; ++j)
+                mma_parity(acc[j], a_lo, a_hi, b_lo, b_hi);
+        }
+    }
+    uint32_t total = 0;
+#pragma unroll
+    for (int j = 0; j < kMatrixAcc; ++j)
+        total += static_cast<uint32_t>(acc[j][0]) +
+                 static_cast<uint32_t>(acc[j][1]) +
+                 static_cast<uint32_t>(acc[j][2]) +
+                 static_cast<uint32_t>(acc[j][3]);
+    total = mvt::block_sum(total, warp_sums);
+    if (threadIdx.x == 0)
+        sums[blockIdx.x] = static_cast<int32_t>(total);
+}
+
 }  // namespace
 
 // Each entry point launches on `stream` of `device` (made current only where
@@ -337,6 +474,57 @@ extern "C" int mvt_mv_stream_control(const void* mvs, const void* mv_counts,
                                    static_cast<cudaStream_t>(stream)>>>(
             static_cast<const short4*>(mvs),
             static_cast<const int32_t*>(mv_counts), m,
+            static_cast<int32_t*>(sums));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// C6 (mode 0), C7 (mode 1) and C8 (mode 2) over mvs int16 [B, M, 4]
+// (8-byte aligned) + counts int32 [B] -> sums int32 [B]; sub int16 [B, M]
+// for C7, ignored otherwise.
+extern "C" int mvt_mv_capacity_control(const void* mvs, const void* mv_counts,
+                                       const void* sub, int batch, int m,
+                                       int mode, void* sums, int device,
+                                       void* stream) {
+    if (batch < 0 || m < 0 || mode < 0 || mode > 2 ||
+        (mode == 1 && sub == nullptr))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const mvt::DeviceGuard guard(device);
+    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+    if (batch > 0) {
+        const short4* f = static_cast<const short4*>(mvs);
+        const int32_t* c = static_cast<const int32_t*>(mv_counts);
+        const int16_t* x = static_cast<const int16_t*>(sub);
+        int32_t* out = static_cast<int32_t*>(sums);
+        cudaStream_t s = static_cast<cudaStream_t>(stream);
+        if (mode == 0)
+            mv_capacity_control_kernel<Capacity::kSum>
+                <<<batch, kMvThreads, 0, s>>>(f, c, nullptr, m, out);
+        else if (mode == 1)
+            mv_capacity_control_kernel<Capacity::kSub>
+                <<<batch, kMvThreads, 0, s>>>(f, c, x, m, out);
+        else
+            mv_capacity_control_kernel<Capacity::kLowBytes>
+                <<<batch, kMvThreads, 0, s>>>(f, c, nullptr, m, out);
+    }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// C10 over mvs int16 [B, M, 4] (8-byte aligned) -> sums int32 [B], at the
+// padded grid gh_p (a multiple of 8) x gw_p (a multiple of 128).
+extern "C" int mvt_mv_matrix_control(const void* mvs, int batch, int m,
+                                     int gh_p, int gw_p, void* sums,
+                                     int device, void* stream) {
+    if (batch < 0 || m < 0 || gh_p < 0 || gw_p < 0 || gh_p % 8 != 0 ||
+        gw_p % 128 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const mvt::DeviceGuard guard(device);
+    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+    // gw_p / 16 is a multiple of 8 = kMatrixAcc
+    const int tile_groups = gw_p / 16 * (gh_p / 8) / kMatrixAcc;
+    if (batch > 0)
+        mv_matrix_control_kernel<<<batch, 32 * kMatrixWarps, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const short4*>(mvs), m, tile_groups,
             static_cast<int32_t*>(sums));
     return static_cast<int>(cudaGetLastError());
 }

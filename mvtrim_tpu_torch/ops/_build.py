@@ -66,6 +66,14 @@ SIGNATURES = {
     # as mvt_mv_cluster_counts
     "mvt_mv_compute_control": [_P, _P] + [_I] * 6 + [_L] + [_I] * 3
                               + [_P, _L, _P, _P, _I, _P],
+    # mvs, mv_counts, sub (or NULL), batch, m, mode, sums, device, stream
+    "mvt_mv_capacity_control": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
+    # mvs, mv_counts, batch, m, gh, gw, y_min, y_max, bound, shift, scratch,
+    # scratch_cells, sums, device, stream
+    "mvt_mv_votes_control": [_P, _P] + [_I] * 6 + [_L, _I]
+                            + [_P, _L, _P, _I, _P],
+    # mvs, batch, m, gh_p, gw_p, sums, device, stream
+    "mvt_mv_matrix_control": [_P] + [_I] * 4 + [_P, _I, _P],
 }
 # entry points that return long long, not int
 RESTYPES = {"mvt_mv_cluster_scratch": ctypes.c_longlong}

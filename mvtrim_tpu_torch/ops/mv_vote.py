@@ -48,16 +48,13 @@ def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x)
 
 
-def mv_votes_plain(mvs: torch.Tensor, counts: torch.Tensor,
-                   geom: GridGeometry, bound: int,
-                   block_shift: int) -> torch.Tensor:
-    """Plain PyTorch vote scatter: mvs int16 [B, M, 4] + counts int32 [B]
-    -> int32 votes [B, gh, gw], no saturation.
-
-    Only the first max(count) MVs of each row are read: the rest fail
-    ``k < count`` in every frame.  The magnitude is formed in int64 and
-    wrapped to int32; the shifts are arithmetic on the widened fields.
-    """
+def keep_mask(mvs: torch.Tensor, counts: torch.Tensor, geom: GridGeometry,
+              bound: int, block_shift: int):
+    """The keep rule over mvs int16 [B, M, 4] + counts int32 [B]: (keep
+    bool [B, n], gx, gy int64 [B, n]) over the first n = max(count) MVs of
+    each row (clamped to 0..M); the rest fail ``k < count`` in every frame.
+    The magnitude is formed in int64 and wrapped to int32; the shifts are
+    arithmetic on the widened fields."""
     b = mvs.shape[0]
     m = int(counts.clamp(0, mvs.shape[1]).max()) if b else 0
     f = mvs[:, :m].to(torch.int64)
@@ -70,6 +67,17 @@ def mv_votes_plain(mvs: torch.Tensor, counts: torch.Tensor,
     keep = ((idx[None, :] < counts[:, None].to(torch.int64))
             & (mag >= bound) & (gx >= 0) & (gx < geom.gw)
             & (gy >= geom.y_min) & (gy < geom.y_max))
+    return keep, gx, gy
+
+
+def mv_votes_plain(mvs: torch.Tensor, counts: torch.Tensor,
+                   geom: GridGeometry, bound: int,
+                   block_shift: int) -> torch.Tensor:
+    """Plain PyTorch vote scatter: mvs int16 [B, M, 4] + counts int32 [B]
+    -> int32 votes [B, gh, gw], no saturation: one vote a kept MV
+    (``keep_mask``) in its cell."""
+    b = mvs.shape[0]
+    keep, gx, gy = keep_mask(mvs, counts, geom, bound, block_shift)
     frame = torch.arange(b, device=mvs.device)[:, None]
     flat = ((frame * geom.gh + gy) * geom.gw + gx)[keep]
     votes = torch.zeros((b * geom.gh * geom.gw,), dtype=torch.int32,
@@ -90,19 +98,26 @@ def mv_cluster_counts_plain(mvs: torch.Tensor, counts: torch.Tensor,
     return cluster_ops.cluster_map_counts_plain(votes, geom, vectors_needed)
 
 
-def _check_mvs(mvs: torch.Tensor, counts: torch.Tensor) -> None:
+def _check_mvs(mvs: torch.Tensor, counts: torch.Tensor | None) -> None:
+    """mvs int16 [B, M, 4], contiguous, 8-byte aligned, and counts int32
+    [B] on its device (None: a function of the fields alone)."""
     if mvs.dtype != torch.int16:
         raise TypeError(f"mvs must be int16, got {mvs.dtype}")
     if mvs.dim() != 3 or mvs.shape[2] != 4:
         raise ValueError(f"mvs must be [B, M, 4], got {tuple(mvs.shape)}")
-    if counts.dtype != torch.int32 or tuple(counts.shape) != mvs.shape[:1]:
-        raise ValueError(
-            f"counts must be int32 [{mvs.shape[0]}], got {counts.dtype} "
-            f"{tuple(counts.shape)}")
-    if counts.device != mvs.device:
-        raise ValueError(f"counts on {counts.device}, mvs on {mvs.device}")
-    if not (mvs.is_contiguous() and counts.is_contiguous()):
-        raise ValueError("mvs and counts must be contiguous")
+    if counts is not None:
+        if counts.dtype != torch.int32 or \
+                tuple(counts.shape) != mvs.shape[:1]:
+            raise ValueError(
+                f"counts must be int32 [{mvs.shape[0]}], got {counts.dtype} "
+                f"{tuple(counts.shape)}")
+        if counts.device != mvs.device:
+            raise ValueError(
+                f"counts on {counts.device}, mvs on {mvs.device}")
+        if not counts.is_contiguous():
+            raise ValueError("counts must be contiguous")
+    if not mvs.is_contiguous():
+        raise ValueError("mvs must be contiguous")
     if mvs.data_ptr() % 8:
         raise ValueError("mvs must start on an 8-byte boundary (one load "
                          "an MV)")
