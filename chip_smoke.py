@@ -57,6 +57,22 @@ body without the cluster rule (``noclu``) and C10 the one-hot vote
 product's shapes on the tensor cores (``mmctrl``).  Phase 2 fails unless
 the compiler's report names every kernel and ``cuobjdump -sass`` finds
 IMMA (integer tensor-core) instructions in C10's kernel.
+
+Phase 7 is the deployment.  7a runs ``python -m mvtrim_tpu_torch.ops._build``
+into a fresh MVT_COMPILE_CACHE and then, in a process that cannot reach
+``nvcc``, doctor's kernel-library and kernel-cache checks and K1 on the
+seeded 1080p masks, exact against its plain version; that process must
+build nothing and never look for ``nvcc``.  7b runs the port's
+``BatchProcessor`` in watch mode in a process of its own and drops 12
+stand-in files into its folder one at a time, alternating an MV camera
+(``SeededReader``, 60 s of 1080p at the bits payload) and an all-intra one
+(no frame with MVs, so ``MVT_PIPELINE=auto`` sends it to the SAD path, K6
+then K3), cut by ``parity/fake_ffmpeg.sh``, which dumps each concat list.
+Each list must equal the oracle backend's for the same stand-in; per file
+it prints the time from landing to list, host RSS, device reserved memory
+and pinned host memory, and fails on growth of 50 MB or more from the
+third file on (``bench.soak_watch``'s rule).  The watch path's launches,
+counted from 0 in the daemon, must include K1, K6 and K3.
 """
 
 from __future__ import annotations
@@ -70,6 +86,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -169,6 +186,7 @@ PATH_KERNELS = {
     "archive_bits_2rank": ("word_cluster_counts",),
     "tune_grids_mesh": ("cluster_map_counts",),
     "tune_sad_mesh": ("sad_block_grid", "cluster_map_counts"),
+    "watch": ("word_cluster_counts", "sad_block_grid", "cluster_map_counts"),
 }
 GEOMETRIES = [  # (width, height, vertical_mask)
     (1920, 1080, 0.05),   # gw=120, not a multiple of 32
@@ -271,6 +289,13 @@ ARCHIVE_SAD_WORKERS = 2
 ARCHIVE_2RANK_CHUNK_SEC = 20.0
 OVERFLOW_CHUNK_SEC = 10.0
 RANK_TIMEOUT = 300
+# phase 7: the watch daemon's files, alternating an MV camera and an
+# all-intra one, and the seconds the daemon may take to start and each
+# file to reach its list (the first absorbs the daemon's first CUDA use)
+WATCH_FILES = 12
+WATCH_MV_SEC = 60.0
+WATCH_INTRA_SEC = 10.0
+WATCH_TIMEOUT = 90.0
 
 
 def log(msg: str) -> None:
@@ -350,6 +375,12 @@ def phase_environment() -> tuple[str, bool]:
         f"python {sys.version.split()[0]}, "
         f"device {torch.cuda.get_device_name(0)} x "
         f"{torch.cuda.device_count()}")
+    driver = subprocess.run(
+        ["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()
+    log(f"driver {driver}; nvcc: {nvcc[-2]}")
     have_pc = shutil.which("pkg-config") is not None
     missing = [p for p in ("libavformat", "libavcodec", "libavutil")
                if not have_pc
@@ -1797,6 +1828,8 @@ def phase_main_paths(seed: int, have_native: bool) -> dict:
         for name, run in runs.items():
             launches[name] = counted(run)
     for path, names in PATH_KERNELS.items():
+        if path == "watch":
+            continue        # phase 7's
         log(f"kernel launches in the {path} path: {launches[path]}")
         for name in names:
             if launches[path][name] == 0:
@@ -2650,11 +2683,359 @@ def bench_path() -> None:
         f"audited; headline {rec['value']:.0f} {rec['unit']}")
 
 
+# --- phase 7 ---
+
+PREBUILT_SCRIPT = """
+import json, os, shutil, sys, time
+import torch
+import chip_smoke as S
+from mvtrim_tpu_torch import Config, GridGeometry, oracle
+from mvtrim_tpu_torch.ops import _build
+from mvtrim_tpu_torch.ops import cluster as cluster_ops
+from mvtrim_tpu_torch.tools import doctor
+
+nvcc_calls = []
+real_nvcc = _build._nvcc
+
+
+def probe():
+    nvcc_calls.append(1)
+    return real_nvcc()
+
+
+_build._nvcc = probe
+unreachable = shutil.which("nvcc") is None and not os.path.exists(
+    os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+t0 = time.perf_counter()
+_build.load_library()
+load_s = time.perf_counter() - t0
+checks = [doctor._check_kernels(), doctor._check_kernel_cache()]
+cfg = Config()
+geom = GridGeometry.build(1920, 1080, cfg)
+bits = torch.from_numpy(S.bits_data(int(sys.argv[1]))).cuda()
+counts, motion = cluster_ops.cluster_bits_op(bits, geom, cfg.clusters_needed)
+plain = cluster_ops.bits_cluster_counts_plain(bits, geom)
+need = oracle.effective_clusters_needed(cfg.clusters_needed)
+torch.cuda.synchronize()
+print(json.dumps({
+    "nvcc_unreachable": unreachable, "nvcc_calls": len(nvcc_calls),
+    "built": sorted(_build.build_info), "load_s": load_s,
+    "library": _build.library_path(), "checks": checks,
+    "frames": int(bits.shape[0]), "motion_frames": int(motion.sum()),
+    "max_abs_err": int((counts.long() - plain.long()).abs().max()),
+    "motion_equal": bool(torch.equal(motion, plain >= need))}))
+"""
+
+
+def phase_prebuilt(seed: int) -> None:
+    """7a: ``python -m mvtrim_tpu_torch.ops._build`` into a fresh
+    MVT_COMPILE_CACHE, then, in a process that cannot reach ``nvcc`` (no
+    PATH directory holding it, CUDA_HOME a path that does not exist) and
+    the same MVT_COMPILE_CACHE: doctor's kernel-library and kernel-cache
+    checks, and K1 on the seeded 1080p masks, exact against its plain
+    version.  Fails if that process built anything or called ``nvcc``'s
+    lookup."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as cache:
+        env = dict(os.environ, MVT_COMPILE_CACHE=cache)
+        t0 = time.perf_counter()
+        built = subprocess.run(
+            [sys.executable, "-m", "mvtrim_tpu_torch.ops._build", "--arch",
+             _build.ARCH], cwd=here, env=env, capture_output=True,
+            text=True, timeout=600)
+        build_wall = time.perf_counter() - t0
+        if built.returncode:
+            raise AssertionError(f"ops._build exited {built.returncode}: "
+                                 f"{built.stderr[-2000:]}")
+        library = built.stdout.strip().splitlines()[-1]
+        nvcc_s = [line for line in built.stderr.splitlines()
+                  if line.startswith("built in ")]
+        if os.path.dirname(library) != cache or not nvcc_s:
+            raise AssertionError(f"ops._build: {library} is not a fresh "
+                                 f"build in {cache}")
+        env.update(CUDA_HOME=os.path.join(cache, "no-cuda"), PATH=os.pathsep
+                   .join(d for d in env.get("PATH", "").split(os.pathsep)
+                         if d and not os.path.exists(os.path.join(d, "nvcc"))))
+        t0 = time.perf_counter()
+        run = subprocess.run(
+            [sys.executable, "-c", PREBUILT_SCRIPT, str(seed)], cwd=here,
+            env=env, capture_output=True, text=True, timeout=300)
+        run_wall = time.perf_counter() - t0
+        if run.returncode:
+            raise AssertionError(f"prebuilt run exited {run.returncode}: "
+                                 f"{run.stderr[-2000:]}")
+        rec = json.loads(run.stdout.strip().splitlines()[-1])
+    for check in rec["checks"]:
+        log(f"7a doctor without nvcc: {check['status']} {check['name']}: "
+            f"{check['detail']}")
+    log(f"7a prebuilt library {os.path.basename(library)}: "
+        f"python -m mvtrim_tpu_torch.ops._build {nvcc_s[0]} by nvcc "
+        f"({build_wall:.3f} s with the process's start); loaded without "
+        f"nvcc in {rec['load_s'] * 1e3:.3f} ms ({run_wall:.3f} s for the "
+        f"whole process); nvcc unreachable: {rec['nvcc_unreachable']}, "
+        f"nvcc lookups {rec['nvcc_calls']}, built {rec['built']}; K1 on "
+        f"{rec['frames']} seeded 1080p frames: max |kernel - plain| "
+        f"{rec['max_abs_err']}, motion equal {rec['motion_equal']} "
+        f"({rec['motion_frames']} motion frames)")
+    status = {c["name"]: c["status"] for c in rec["checks"]}
+    if (not rec["nvcc_unreachable"] or rec["nvcc_calls"] or rec["built"]
+            or rec["library"] != library
+            or status != {"kernel-library": "ok", "kernel-cache": "ok"}
+            or rec["max_abs_err"] or not rec["motion_equal"]):
+        raise AssertionError(f"7a: the prebuilt library run failed: {rec}")
+
+
+class IntraReader(SeededReader):
+    """A stand-in for an all-intra camera: its MV scans report no frame
+    with MVs (empty masks, nothing counted), and its luma is
+    ``LumaClip``'s, so MVT_PIPELINE=auto sends it to the SAD path."""
+
+    def scan_bits(self, start, end, *, gw, gh, y_min, y_max, frame_skip=1,
+                  max_frames=4096, timing=None, resume=False, **_):
+        self._geometry(gw, gh, y_min, y_max)
+        lo, hi = self._range(start, end, frame_skip, max_frames, resume)
+        return (np.zeros((hi - lo, gh, (gw + 7) // 8), np.uint8),
+                self.pts[lo:hi])
+
+    def scan_luma(self, start, end, *, frame_skip=1, max_frames=256,
+                  timing=None, resume=False):
+        lo, hi = self._range(start, end, frame_skip, max_frames, resume)
+        return luma_clip(self.seed).frames(lo, hi), self.pts[lo:hi]
+
+
+@functools.lru_cache(maxsize=1)
+def luma_clip(seed: int) -> LumaClip:
+    return LumaClip(seed, 1920, 1080)
+
+
+def watch_reader(seed: int):
+    """``native.VideoReader``'s stand-in for the watch daemon: a file
+    named ``mv*`` is the MV camera (``SeededReader``, 60 s of 1080p), any
+    other the all-intra one (``IntraReader``, 10 s)."""
+    def open_reader(path, *_args, **_kw):
+        if os.path.basename(path).startswith("mv"):
+            return SeededReader(seed, WATCH_MV_SEC)
+        return IntraReader(seed, WATCH_INTRA_SEC)
+    return open_reader
+
+
+def pinned_host_mb() -> float | None:
+    """Pinned host memory that PyTorch's caching host allocator holds, in
+    MB; None where this PyTorch has no ``torch.cuda.host_memory_stats``."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return None
+    return stats().get("allocated_bytes.current", 0) / 2 ** 20
+
+
+DAEMON_SCRIPT = """
+import json, os, sys
+import torch
+import chip_smoke as S
+from mvtrim_tpu_torch import Config, native
+from mvtrim_tpu_torch.batch.batch import BatchProcessor
+from mvtrim_tpu_torch.cut import executor
+
+seed, in_dir, out_dir, samples = int(sys.argv[1]), *sys.argv[2:5]
+native.VideoReader = S.watch_reader(seed)     # the probe and the workers
+for wrapper, _, _ in S.KERNELS.values():
+    wrapper.launches = 0
+real_cut = executor.execute_cut
+
+
+def launches():
+    return {n: spec[0].launches for n, spec in S.KERNELS.items()}
+
+
+def sampled_cut(input_path, *args, **kw):
+    rc = real_cut(input_path, *args, **kw)
+    with open(samples, "a") as f:
+        f.write(json.dumps({
+            "file": os.path.basename(input_path), "rc": rc,
+            "reserved_mb": torch.cuda.memory_reserved() / 2 ** 20,
+            "pinned_mb": S.pinned_host_mb()}) + "\\n")
+    return rc
+
+
+executor.execute_cut = sampled_cut
+with open(samples, "a") as f:
+    f.write(json.dumps({"file": None}) + "\\n")    # up, no CUDA use yet
+rc = BatchProcessor(1, Config.from_env()).process([], out_dir, in_dir)
+print(json.dumps({"rc": rc, "launches": launches()}), flush=True)
+"""
+
+
+def watch_refs(seed: int, workdir: str, fake: str) -> dict:
+    """The oracle backend's concat list of each camera, from the pipeline
+    over the same stand-in with the same cut command: camera -> (the list,
+    the input path it names)."""
+    refs = {}
+    real = native.VideoReader
+    native.VideoReader = watch_reader(seed)
+    try:
+        for camera in ("mv", "intra"):
+            src = os.path.join(workdir, f"{camera}_ref.mp4")
+            dump = os.path.join(workdir, f"{camera}_ref.concat")
+            os.environ["MVT_CONCAT_DUMP"] = dump
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = ProcessingPipeline(src, src + ".out", cfg=Config(
+                    scan_backend="oracle", ffmpeg_bin=fake)).run()
+            with open(dump) as f:
+                refs[camera] = (f.read(), src)
+            log(f"7b oracle backend, {camera} camera: rc {rc}, "
+                f"{refs[camera][0].count('inpoint')} segments in "
+                f"{time.perf_counter() - t0:.3f} s")
+            if rc != 0 or not refs[camera][0]:
+                raise AssertionError(f"7b: no oracle list for {camera}")
+    finally:
+        native.VideoReader = real
+        os.environ.pop("MVT_CONCAT_DUMP", None)
+    return refs
+
+
+def watch_path(seed: int):
+    """7b: the port's BatchProcessor in watch mode, in a process of its
+    own, fed WATCH_FILES stand-in files one at a time, alternating the MV
+    and the all-intra camera, and cut by parity/fake_ffmpeg.sh, which
+    dumps each concat list.  Each list must equal the oracle backend's;
+    each file's list must come within WATCH_TIMEOUT; host RSS and device
+    reserved memory must grow by less than 50 MB from the third file on
+    (bench.soak_watch's rule).  The daemon's launch counts come back with
+    its result."""
+    from mvtrim_tpu_torch.bench import soak_watch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    fake = os.path.join(here, "parity", "fake_ffmpeg.sh")
+
+    def run() -> dict:
+        with tempfile.TemporaryDirectory() as workdir:
+            refs = watch_refs(seed, workdir, fake)
+            dirs = {k: os.path.join(workdir, k)
+                    for k in ("in", "out", "lists")}
+            for d in dirs.values():
+                os.makedirs(d)
+            samples = os.path.join(workdir, "samples.jsonl")
+            env = dict(os.environ, WATCH_MODE="1", PARALLEL_STREAMS="1",
+                       MVT_FFMPEG_BIN=fake, MVT_CONCAT_DUMP_DIR=dirs["lists"])
+            logs = os.path.join(workdir, "daemon.log")
+            with open(logs, "w") as out:
+                daemon = subprocess.Popen(
+                    [sys.executable, "-c", DAEMON_SCRIPT, str(seed),
+                     dirs["in"], dirs["out"], samples], cwd=here, env=env,
+                    stdout=out, stderr=subprocess.STDOUT, text=True)
+            try:
+                series = watch_feed(daemon, dirs, samples, refs, logs)
+                daemon.send_signal(signal.SIGINT)
+                daemon.wait(timeout=60)
+            finally:
+                if daemon.poll() is None:
+                    daemon.kill()
+                    daemon.wait()
+            with open(logs) as f:
+                tail = f.read().strip().splitlines()
+            if daemon.returncode != 0:
+                raise AssertionError(f"7b: the daemon exited "
+                                     f"{daemon.returncode}: {tail[-20:]}")
+            result = json.loads(tail[-1])
+        growth = {k: soak_watch.steady_growth(series[k])
+                  for k in ("rss_mb", "reserved_mb")}
+        log(f"7b watch daemon: {WATCH_FILES} files, daemon rc "
+            f"{result['rc']}; growth from the third file on {growth} MB "
+            f"(limit {soak_watch.GROWTH_LIMIT_MB:g}); list latency "
+            f"{[round(t, 3) for t in series['latency_s']]} s")
+        if result["rc"] != 0 or not soak_watch.memory_healthy(
+                {k: series[k] for k in growth}):
+            raise AssertionError(f"7b: rc {result['rc']}, growth {growth}")
+        return {"child_launches": result["launches"]}
+
+    return run
+
+
+def watch_feed(daemon, dirs: dict, samples: str, refs: dict,
+               logs: str) -> dict:
+    """Drop the files one at a time; per file, wait for its list and the
+    daemon's sample, hold the list to the oracle's, and log the latency
+    and memory.  Returns each series."""
+    from mvtrim_tpu_torch.bench import soak_watch
+
+    series = {k: [] for k in ("latency_s", "rss_mb", "reserved_mb",
+                              "pinned_mb")}
+    t0 = time.perf_counter()
+    while not os.path.exists(samples) and daemon.poll() is None \
+            and time.perf_counter() < t0 + WATCH_TIMEOUT:
+        time.sleep(0.02)
+    if not os.path.exists(samples):
+        raise AssertionError(f"7b: the daemon did not start (rc "
+                             f"{daemon.poll()})")
+    log(f"7b daemon up in {time.perf_counter() - t0:.3f} s (imports, "
+        f"before any CUDA use): host RSS "
+        f"{soak_watch.rss_mb(daemon.pid):.1f} MB")
+    for i in range(WATCH_FILES):
+        camera = "mv" if i % 2 == 0 else "intra"
+        name = f"{camera}_{i:02d}.mp4"
+        staging = os.path.join(os.path.dirname(dirs["in"]), name)
+        with open(staging, "wb") as f:
+            f.write(b"stand-in")
+        t0 = time.perf_counter()
+        os.rename(staging, os.path.join(dirs["in"], name))
+        listed = os.path.join(dirs["lists"], name + ".concat")
+        deadline = t0 + WATCH_TIMEOUT
+        latency = None
+        record = None
+        while time.perf_counter() < deadline and record is None:
+            if latency is None and os.path.exists(listed):
+                latency = time.perf_counter() - t0
+            if latency is not None:
+                with open(samples) as f:
+                    # a line is whole once its newline is written
+                    recs = [json.loads(line) for line in f
+                            if line.endswith("\n")]
+                record = next((r for r in recs if r["file"] == name), None)
+            if daemon.poll() is not None:
+                break
+            time.sleep(0.02)
+        if record is None:
+            with open(logs) as f:
+                tail = f.read().strip().splitlines()[-20:]
+            raise AssertionError(f"7b: {name} not done within its time "
+                                 f"(daemon rc {daemon.poll()}): {tail}")
+        text, src = refs[camera]
+        with open(listed) as f:
+            got = f.read()
+        want = text.replace(src, os.path.join(dirs["in"], name))
+        rss = soak_watch.rss_mb(daemon.pid)
+        for key, value in (("latency_s", latency), ("rss_mb", rss),
+                           ("reserved_mb", record["reserved_mb"]),
+                           ("pinned_mb", record["pinned_mb"])):
+            series[key].append(value)
+        pinned = ("torch.cuda.host_memory_stats not in this PyTorch"
+                  if record["pinned_mb"] is None
+                  else f"{record['pinned_mb']:.1f} MB")
+        log(f"7b file {i} {name}: list == oracle backend's: {got == want} "
+            f"({got.count('inpoint')} segments), cut rc {record['rc']}; "
+            f"landing to list {latency:.3f} s; host RSS {rss:.1f} MB, "
+            f"device reserved {record['reserved_mb']:.1f} MB, pinned host "
+            f"{pinned}")
+        if got != want or record["rc"] != 0:
+            raise AssertionError(f"7b: {name}'s list differs from the "
+                                 f"oracle backend's:\n{got}\n!=\n{want}")
+    return series
+
+
+def phase_deployment(seed: int) -> dict:
+    """Phase 7: the prebuilt library without nvcc (7a), then the watch
+    daemon (7b), counted; the watch path's launches."""
+    phase_prebuilt(seed)
+    return counted(watch_path(seed))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--times-only", action="store_true",
-                    help="build, then time the kernels (phase 5) and stop, "
+                    help="build, then time the kernels (phase 5) and stop "
+                         "(no phase 7), "
                          "printing their times as the last line; copied "
                          "into the root of another checkout, times that "
                          "checkout's kernels on the same card")
@@ -2700,6 +3081,12 @@ def main() -> int:
         if bench_launches[name] == 0:
             raise AssertionError(f"the bench never launched {name}")
     log(f"phase 6 done at {time.perf_counter() - t_start:.3f} s")
+    launches["watch"] = phase_deployment(args.seed)
+    log(f"kernel launches in the watch path: {launches['watch']}")
+    for name in PATH_KERNELS["watch"]:
+        if launches["watch"][name] == 0:
+            raise AssertionError(f"the watch path never launched {name}")
+    log(f"phase 7 done at {time.perf_counter() - t_start:.3f} s")
     loaded = [m for m in sys.modules
               if m in ("jax", "mvtrim_tpu") or m.startswith(("jax.",
                                                             "mvtrim_tpu."))]

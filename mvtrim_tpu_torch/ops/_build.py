@@ -1,13 +1,22 @@
 """Build, load and launch the port's CUDA kernels.
 
 ``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain
-C interface, under ``build/mvtrim_tpu_torch/`` at the root of the
-checkout, and ``ctypes`` loads it.  The sources compile in parallel, one
-``nvcc`` each, and are linked in one more step.  The library's name
-carries a hash of all the sources and of the headers they include
-(``csrc/*.cuh``), so an edited, added or removed file builds anew and an
-unchanged set is reused.  Nothing here runs at import:
-the CPU build never needs ``nvcc``.
+C interface, and ``ctypes`` loads it.  The library lives in
+``MVT_COMPILE_CACHE`` where that is set (the directory compiled programs
+persist in, shared by processes, as for the JAX package); else in
+``build/mvtrim_tpu_torch/`` at the root of the checkout the package sits
+in, or in ``~/.cache/mvtrim_tpu/torch`` for an installed package.  The
+sources compile in parallel, one ``nvcc`` each, and are linked in one more
+step.  The library's name carries a hash of all the sources and of the
+headers they include (``csrc/*.cuh``), so an edited, added or removed
+file builds anew, and a library already there for these sources is loaded
+without ``nvcc``.  Nothing here runs at import: the CPU build never needs
+``nvcc``.
+
+    python -m mvtrim_tpu_torch.ops._build [--arch sm_90a]
+
+builds the library for these sources now (an image does so at build time)
+and prints its path; ``--arch`` fails unless it is the arch built for.
 
 ``launch`` is the one way the wrappers call a kernel's C entry point: bound
 once, on the tensor's card and PyTorch's current stream there, raising on a
@@ -22,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 
@@ -29,9 +39,14 @@ import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
-                         "mvtrim_tpu_torch")
-ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+_ROOT = os.path.dirname(_PKG_DIR)
+# the default directory: the checkout's build/, or the user's cache for a
+# package installed outside a checkout
+BUILD_DIR = (os.path.join(_ROOT, "build", "mvtrim_tpu_torch")
+             if os.path.exists(os.path.join(_ROOT, "pyproject.toml"))
+             else os.path.expanduser("~/.cache/mvtrim_tpu/torch"))
+ARCH = "sm_90a"
+ARCH_FLAGS = ["-gencode", f"arch=compute_90a,code={ARCH}"]
 COMPILE_FLAGS = [*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v"]
 
@@ -108,13 +123,19 @@ def _nvcc() -> str:
         "CPU build)")
 
 
+def build_dir() -> str:
+    """Where the library is built and looked for: MVT_COMPILE_CACHE, else
+    ``BUILD_DIR``."""
+    return os.environ.get("MVT_COMPILE_CACHE") or BUILD_DIR
+
+
 def library_path() -> str:
     digest = hashlib.sha256()
     for src in sources() + headers():
         digest.update(os.path.basename(src).encode() + b"\0")
         with open(src, "rb") as f:
             digest.update(f.read())
-    return os.path.join(BUILD_DIR,
+    return os.path.join(build_dir(),
                         f"libmvt_kernels_{digest.hexdigest()[:16]}.so")
 
 
@@ -136,10 +157,11 @@ def _build(so_path: str) -> None:
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    out_dir = os.path.dirname(so_path)
+    os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{os.getpid()}.tmp"
-    objs = [os.path.join(BUILD_DIR, os.path.basename(s) + f".{tag}.o")
+    objs = [os.path.join(out_dir, os.path.basename(s) + f".{tag}.o")
             for s in srcs]
     t0 = time.perf_counter()
     try:
@@ -158,7 +180,8 @@ def _build(so_path: str) -> None:
 
 
 def load_library():
-    """The kernel library, built first if these sources have not been."""
+    """The kernel library, built first if these sources have not been.
+    A library that is there but does not load raises; it is not rebuilt."""
     global _lib
     with _lock:
         if _lib is not None:
@@ -193,3 +216,26 @@ def launch(name: str, counter, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     with _count_lock:
         counter.launches += 1
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        description="Build the kernel library for these sources into "
+                    "MVT_COMPILE_CACHE (else the default directory) and "
+                    "print its path.")
+    ap.add_argument("--arch", default=ARCH,
+                    help=f"the arch the caller expects; must be {ARCH}")
+    args = ap.parse_args(argv)
+    if args.arch != ARCH:
+        ap.error(f"--arch {args.arch}: the kernels are built for {ARCH}")
+    load_library()
+    if build_info:
+        print(f"built in {build_info['seconds']:.3f} s", file=sys.stderr)
+    print(library_path())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

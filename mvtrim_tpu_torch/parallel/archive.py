@@ -210,7 +210,24 @@ def scan_archive_multiprocess_reader(open_reader, cfg: Config | None = None,
         if checkpoint:
             identity = _identity(name, duration, cfg, frame_skip, "bits")
             identity.update(process_count=pc, process_index=pi)
-            ckpt = ScanCheckpoint(f"{checkpoint}.p{pi}", identity)
+            refusal = None
+            try:
+                ckpt = ScanCheckpoint(f"{checkpoint}.p{pi}", identity)
+            except (RuntimeError, OSError) as e:
+                refusal = e
+            # every rank learns of a refusal before the scan's first
+            # collective: a rank that went on alone would wait there for
+            # ranks that have left, up to the group's timeout
+            refused = distributed.allgather_ints(
+                [refusal is not None]).ravel()
+            if refusal is not None:
+                raise refusal
+            if refused.any():
+                raise RuntimeError(
+                    f"checkpoint {checkpoint}: rank(s) "
+                    f"{np.flatnonzero(refused).tolist()} refused their "
+                    f"sidecars (a different scan); rank {pi} stops with "
+                    f"them")
 
         # --- decode this rank's disjoint chunk slice (cap-resume like
         # the single-process workers) ---

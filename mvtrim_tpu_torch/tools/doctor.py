@@ -9,8 +9,10 @@ port needs is made explicit BEFORE a production run:
   because the single-file pipeline auto-falls back to the pixel-domain
   SAD detector;
 * stream-copy remux cut produces a decodable output;
-* the CUDA inventory, ``nvcc``, and the build and load of the port's
-  kernel library (``ops/_build.py``), and the device mesh;
+* the CUDA inventory, ``nvcc``, the build and load of the port's kernel
+  library (``ops/_build.py``), whether that library was prebuilt in its
+  directory (MVT_COMPILE_CACHE; an image has it there and no ``nvcc``, so
+  a missing ``nvcc`` is then a WARN), and the device mesh;
 * a full end-to-end trim on a synthesized clip, on the scan backend of
   MVT_SCAN_BACKEND: the card by default (``auto``), the CPU build with
   ``torch``, the NumPy oracle with ``oracle``.
@@ -127,7 +129,14 @@ def _check_cuda() -> dict:
 
 def _check_nvcc() -> dict:
     from ..ops import _build
-    nvcc = _build._nvcc()
+    try:
+        nvcc = _build._nvcc()
+    except RuntimeError as e:
+        if not os.path.exists(_build.library_path()):
+            raise
+        return {"name": "nvcc", "status": "warn",
+                "detail": f"{e}; the library for these sources is "
+                          f"prebuilt, so nothing needs it"}
     out = subprocess.run([nvcc, "--version"], capture_output=True,
                          text=True, check=True).stdout.strip()
     return {"name": "nvcc", "status": "ok",
@@ -143,6 +152,26 @@ def _check_kernels() -> dict:
             "detail": f"{len(_build.sources())} CUDA sources for "
                       f"{' '.join(_build.ARCH_FLAGS[1:])}, {built}: "
                       f"{_build.library_path()}"}
+
+
+def _check_kernel_cache() -> dict:
+    from ..ops import _build
+    path = _build.library_path()
+    where = f"{os.path.basename(path)} in {_build.build_dir()}"
+    if _build.build_info.get("path") == path:
+        return {"name": "kernel-cache", "status": "warn",
+                "detail": f"{where}: not prebuilt, this process built it "
+                          f"(first use of every fresh directory does)"}
+    if os.path.exists(path):
+        return {"name": "kernel-cache", "status": "ok",
+                "detail": f"{where}: prebuilt, loads without nvcc"}
+    try:
+        _build._nvcc()
+    except RuntimeError as e:
+        return {"name": "kernel-cache", "status": "fail",
+                "detail": f"no {where}, and {e}"}
+    return {"name": "kernel-cache", "status": "warn",
+            "detail": f"no {where}: first use builds it with nvcc"}
 
 
 def _check_mesh() -> dict:
@@ -198,6 +227,7 @@ def run_checks() -> list[dict]:
         ("cuda-devices", _check_cuda),
         ("nvcc", _check_nvcc),
         ("kernel-library", _check_kernels),
+        ("kernel-cache", _check_kernel_cache),
         ("device-mesh", _check_mesh),
         (f"end-to-end ({backend})", lambda: _check_e2e(backend)),
     ]

@@ -18,6 +18,7 @@ import socket
 import struct
 import subprocess
 import sys
+import time
 
 import pytest
 
@@ -37,9 +38,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawn_raw(worker_src: str, n_procs: int, extra_env=None):
+def _spawn_raw(worker_src: str, n_procs: int, extra_env=None,
+               timeout: float = TIMEOUT):
     """n ranks of ``worker_src`` joined into one gloo group; returns
-    [(returncode, stdout, stderr)] in rank order."""
+    [(returncode, stdout, stderr)] in rank order, every rank done within
+    ``timeout`` seconds of the call."""
     port = _free_port()
     procs = []
     for rank in range(n_procs):
@@ -55,9 +58,11 @@ def _spawn_raw(worker_src: str, n_procs: int, extra_env=None):
             [sys.executable, "-c", worker_src], env=env, cwd=REPO,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     out = []
+    deadline = time.monotonic() + timeout
     try:
         for p in procs:
-            o, e = p.communicate(timeout=TIMEOUT)
+            o, e = p.communicate(
+                timeout=max(0.0, deadline - time.monotonic()))
             out.append((p.returncode, o, e))
     finally:
         for p in procs:
@@ -255,6 +260,25 @@ def test_multirank_checkpoint_refuses_resharded_topology(clips, tmp_path):
     failing = [e for rc, _, e in out if rc != 0]
     assert failing, "the resharded resume was not refused"
     assert any("different scan" in e for e in failing)
+
+
+def test_refused_resume_stops_every_rank_promptly(clips, tmp_path):
+    """The refusal is agreed across ranks before the scan's first
+    collective: every rank of a 4-rank resume over 2-rank sidecars exits
+    nonzero within 60 s (none waits for the others in a collective), the
+    refusing ranks with the "different scan" error, the rest naming
+    them."""
+    ck = str(tmp_path / "mp2.ckpt")
+    env = {"MVT_TEST_CLIP": clips["six"], "MVT_TEST_CKPT": ck,
+           "MVT_TEST_FPD": "8", "MVT_TEST_CHUNK": "2.0"}
+    _spawn(_ARCHIVE_WORKER, 2, env)
+    out = _spawn_raw(_ARCHIVE_WORKER, 4, env, timeout=60)
+    assert [rc != 0 for rc, _, _ in out] == [True] * 4
+    for rank, (_, _, err) in enumerate(out):
+        if rank < 2:
+            assert "different scan" in err, err[-2000:]
+        else:
+            assert "rank(s) [0, 1] refused" in err, err[-2000:]
 
 
 _F64_WORKER = """

@@ -224,3 +224,66 @@ class TestDoctor:
         assert "libavformat" in checks["libav"]["detail"]
         assert checks["device-mesh"]["status"] == "ok"
         assert rc == doc["failures"] >= 5
+
+
+class TestDoctorKernelCache:
+    """``kernel-cache``: ok when the library for these sources is in its
+    directory (MVT_COMPILE_CACHE), warn when it is not but ``nvcc`` is there
+    (first use builds it) or this process just built it, fail when neither;
+    and a missing ``nvcc`` is a warn, not a fail, beside a prebuilt
+    library (the runtime image)."""
+
+    @pytest.fixture
+    def cache(self, monkeypatch, tmp_path):
+        monkeypatch.setenv("MVT_COMPILE_CACHE", str(tmp_path))
+        monkeypatch.setattr(_build, "build_info", {})
+        return tmp_path
+
+    @staticmethod
+    def nvcc(monkeypatch, present: bool):
+        def found():
+            return "/usr/local/cuda/bin/nvcc"
+
+        def missing():
+            raise RuntimeError("nvcc not found on PATH or under CUDA_HOME")
+
+        monkeypatch.setattr(_build, "_nvcc", found if present else missing)
+
+    @pytest.mark.parametrize("prebuilt,nvcc,built_here,status", [
+        (True, False, False, "ok"),
+        (True, True, False, "ok"),
+        (False, True, False, "warn"),
+        (True, True, True, "warn"),
+        (False, False, False, "fail"),
+    ])
+    def test_status(self, monkeypatch, cache, prebuilt, nvcc, built_here,
+                    status):
+        self.nvcc(monkeypatch, nvcc)
+        path = _build.library_path()
+        if prebuilt:
+            open(path, "wb").close()
+        if built_here:
+            _build.build_info.update(seconds=1.0, path=path, report="")
+        check = doctor._check_kernel_cache()
+        assert check["name"] == "kernel-cache"
+        assert check["status"] == status, check
+        assert str(cache) in check["detail"]
+
+    @pytest.mark.parametrize("prebuilt,status", [(True, "warn"),
+                                                 (False, "fail")])
+    def test_missing_nvcc_is_a_warn_beside_a_prebuilt_library(
+            self, monkeypatch, cache, prebuilt, status):
+        self.nvcc(monkeypatch, False)
+        monkeypatch.setattr(_build, "_lib", None)
+        if prebuilt:
+            open(_build.library_path(), "wb").close()
+        monkeypatch.setattr(doctor, "_check_e2e", lambda backend: {
+            "name": f"end-to-end ({backend})", "status": "ok", "detail": ""})
+        checks = by_name(doctor.run_checks())
+        assert checks["nvcc"]["status"] == status, checks["nvcc"]
+        assert "nvcc not found" in checks["nvcc"]["detail"]
+        assert checks["kernel-cache"]["status"] == ("ok" if prebuilt
+                                                   else "fail")
+        names = list(checks)
+        assert names.index("kernel-cache") == \
+            names.index("kernel-library") + 1
