@@ -73,6 +73,21 @@ it prints the time from landing to list, host RSS, device reserved memory
 and pinned host memory, and fails on growth of 50 MB or more from the
 third file on (``bench.soak_watch``'s rule).  The watch path's launches,
 counted from 0 in the daemon, must include K1, K6 and K3.
+
+Phase 8 replays real encoder output on the card.  ``mvtrim_tpu_torch/
+bench/replay.py`` holds payloads recorded from the native scans of four
+synthesized clips (A: 1080p x264 with B-frames and sensor noise, 60 s,
+masks, words and vote grids; B: the same camera for 10 s, every raw MV,
+most frames past 8,192 of them; C: 4K x264, masks; D: HEVC, no MV side
+data, luma).  ``ReplayReader`` stands in for ``native.VideoReader`` (the
+probe and every decode worker), and the port's ``ProcessingPipeline``
+decides A on the bits, words and grids payloads, B on mv_raw, C on bits
+and D under ``MVT_PIPELINE=auto`` (so on the SAD path), cut by
+``parity/fake_ffmpeg.sh``.  Each concat list must equal the one the oracle
+backend cut the real decode to when the fixture was recorded; B must
+re-decode a chunk at an MV capacity above 16,384.  Each run is made twice,
+timed and then with CUDA events around each kernel launch, and logs its
+wall time, its dispatches and each launch's device time.
 """
 
 from __future__ import annotations
@@ -99,7 +114,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from mvtrim_tpu_torch import Config, GridGeometry, native, oracle  # noqa: E402
-from mvtrim_tpu_torch.bench import audit, controls  # noqa: E402
+from mvtrim_tpu_torch.bench import audit, controls, replay  # noqa: E402
 from mvtrim_tpu_torch.bench.audit import (  # noqa: E402
     centre_cells, least_time, map_bytes, word_bound)
 from mvtrim_tpu_torch.models.mv_detector import MVClusterDetector  # noqa: E402
@@ -188,6 +203,23 @@ PATH_KERNELS = {
     "tune_sad_mesh": ("sad_block_grid", "cluster_map_counts"),
     "watch": ("word_cluster_counts", "sad_block_grid", "cluster_map_counts"),
 }
+# phase 8: the recorded payloads of bench/replay.py's fixtures, each run of
+# each fixture a path of its own
+REPLAY_PATHS = {
+    ("A", "bits"): ("word_cluster_counts",),
+    ("A", "words"): ("word_cluster_counts",),
+    ("A", "grids"): ("cluster_map_counts",),
+    ("B", "mv_raw"): ("mv_cluster_counts",),
+    ("C", "bits"): ("word_cluster_counts",),
+    ("D", "auto"): ("sad_block_grid", "cluster_map_counts"),
+}
+PATH_KERNELS.update({f"replay_{fx}_{run}": names
+                     for (fx, run), names in REPLAY_PATHS.items()})
+# B must re-decode a chunk at an MV capacity above this; the cycles the
+# stream spins before each event-timed launch (about 1 ms at the card's
+# clocks, well past a launch's 20-100 µs of host enqueue)
+REPLAY_OVERFLOW_ABOVE = 16384
+HIDE_ENQUEUE_CYCLES = 2_000_000
 GEOMETRIES = [  # (width, height, vertical_mask)
     (1920, 1080, 0.05),   # gw=120, not a multiple of 32
     (3840, 2160, 0.05),   # 4K
@@ -1828,8 +1860,8 @@ def phase_main_paths(seed: int, have_native: bool) -> dict:
         for name, run in runs.items():
             launches[name] = counted(run)
     for path, names in PATH_KERNELS.items():
-        if path == "watch":
-            continue        # phase 7's
+        if path == "watch" or path.startswith("replay_"):
+            continue        # phases 7 and 8's
         log(f"kernel launches in the {path} path: {launches[path]}")
         for name in names:
             if launches[path][name] == 0:
@@ -3030,12 +3062,159 @@ def phase_deployment(seed: int) -> dict:
     return counted(watch_path(seed))
 
 
+@contextlib.contextmanager
+def launch_events():
+    """Each launch of the port's kernels bracketed by two CUDA events on
+    its stream (``ops/_build.launch`` wrapped): yields the list of (C entry
+    point, start, end) that the launches fill in.  The stream is first
+    held busy for HIDE_ENQUEUE_CYCLES, so that the kernel is queued before
+    the start event runs and the pair times the kernel, not the host's
+    enqueue of it."""
+    real = _build.launch
+    marks = []
+
+    def timed(name, counter, device, *args):
+        stream = torch.cuda.current_stream(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.device(device):
+            torch.cuda._sleep(HIDE_ENQUEUE_CYCLES)
+        start.record(stream)
+        real(name, counter, device, *args)
+        end.record(stream)
+        marks.append((name, start, end))
+
+    _build.launch = timed
+    try:
+        yield marks
+    finally:
+        _build.launch = real
+
+
+def launch_list(us: list) -> str:
+    """The first eight of a run's per-launch µs, as text."""
+    return ", ".join(f"{u:.1f}" for u in us[:8]) + (", ..." if len(us) > 8
+                                                   else "")
+
+
+def replay_path(name: str, run: str, fields: dict, workdir: str):
+    """One run of a recorded fixture: the port's ProcessingPipeline on the
+    card over ``ReplayReader`` in place of ``native.VideoReader`` (the
+    probe and every decode worker), cut by parity/fake_ffmpeg.sh.  Run
+    twice: timed, then with CUDA events around each kernel launch for its
+    device time; each concat list must equal the fixture's stored one
+    (the oracle backend's on the real decode)."""
+    from mvtrim_tpu_torch.utils.timing import TimingCollector
+
+    fx = replay.load(name)
+
+    def once(label: str, scans: list) -> tuple[float, dict]:
+        src = os.path.join(workdir, f"{name}_{run}_{label}.mp4")
+        dump = src + ".concat"
+        metrics = src + ".jsonl"
+        cfg = fx.config(**fields, ffmpeg_bin=replay.FAKE_FFMPEG,
+                        metrics_json=metrics)
+        class Traced(replay.ReplayReader):
+            def scan_mvs(self, *args, **kw):
+                scans.append(kw.get("max_mv"))
+                return super().scan_mvs(*args, **kw)
+
+        real = native.VideoReader
+        native.VideoReader = lambda path, mode=native.MVT_MODE_MV: Traced(
+            fx, mode, path)
+        os.environ["MVT_CONCAT_DUMP"] = dump
+        out = io.StringIO()
+        TimingCollector.clear()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = ProcessingPipeline(src, src + ".out", cfg=cfg).run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            native.VideoReader = real
+            os.environ.pop("MVT_CONCAT_DUMP", None)
+        got = open(dump).read() if os.path.exists(dump) else ""
+        if rc != 0 or got != fx.concat(src):
+            raise AssertionError(
+                f"replay {name} {run} ({label}): rc {rc}, list\n{got}\n!= "
+                f"the stored\n{fx.concat(src)}\n{out.getvalue()[-2000:]}")
+        with open(metrics) as f:
+            return wall, json.loads(f.readlines()[-1])
+
+    def run_fn() -> dict:
+        scans: list = []
+        before = {k: spec[0].launches for k, spec in KERNELS.items()}
+        wall, rec = once("timed", scans)
+        dispatches = {k: spec[0].launches - before[k]
+                      for k, spec in KERNELS.items()
+                      if spec[0].launches > before[k]}
+        with launch_events() as marks:
+            events_wall, _ = once("event-timed", [])
+        device: dict = {}
+        for entry, start, end in marks:
+            device.setdefault(entry, []).append(
+                start.elapsed_time(end) * 1e3)
+        busy = sum(map(sum, device.values())) / (events_wall * 1e6)
+        log(f"replay {name} {run} ({json.dumps(fx.meta['synth'])}, "
+            f"{len(fx.pts)} frames, {fx.concat_text.count('inpoint')} "
+            f"segments): list == stored oracle list; wall {wall:.3f} s "
+            f"(event-timed run {events_wall:.3f} s), dispatches "
+            f"{dispatches}, "
+            f"decision {rec['decision']} saved {rec['saved_pct']:.3f}%, "
+            f"frames {rec['frames_scanned']} with MVs "
+            f"{rec['frames_with_mvs']}; device µs a launch (CUDA events) "
+            + ", ".join(f"{k} {sum(d):.1f} in {len(d)} ({launch_list(d)})"
+                        for k, d in sorted(device.items()))
+            + f"; kernels {busy * 100:.3f}% of the event-timed run's wall; "
+            f"phases_us {json.dumps(rec['phases_us'])}")
+        if "mvs" in fx.meta["payloads"]:
+            caps = sorted(set(c for c in scans if c is not None))
+            log(f"replay {name} {run}: scan_mvs capacities {caps}; "
+                f"fullest frame {int(fx.arrays['mv_counts'].max())} MVs, "
+                f"{int((fx.arrays['mv_counts'] > 8192).sum())} of "
+                f"{len(fx.pts)} frames over 8192")
+            if not caps or caps[-1] <= REPLAY_OVERFLOW_ABOVE:
+                raise AssertionError(
+                    f"replay {name}: no chunk re-decoded above "
+                    f"{REPLAY_OVERFLOW_ABOVE} MVs ({caps})")
+        return {}
+
+    return run_fn
+
+
+def phase_replay() -> dict:
+    """Phase 8: every run of every recorded fixture, each counted on its
+    own: path -> launches."""
+    launches = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        for name, spec in replay.FIXTURES.items():
+            fx = replay.load(name)
+            log(f"replay fixture {name}: {os.path.getsize(replay.path(name))}"
+                f" B compressed, {fx.nbytes()} B loaded, payloads "
+                f"{fx.meta['payloads']}, {fx.meta['width']}x"
+                f"{fx.meta['height']} {fx.meta['duration']:.2f} s")
+            for run, fields in spec.runs:
+                path = f"replay_{name}_{run}"
+                launches[path] = counted(replay_path(name, run, fields,
+                                                     workdir))
+    for (name, run), names in REPLAY_PATHS.items():
+        path = f"replay_{name}_{run}"
+        log(f"kernel launches in the {path} path: {launches[path]}")
+        for kernel in names:
+            if launches[path][kernel] == 0:
+                raise AssertionError(f"the {path} path never launched "
+                                     f"{kernel}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--times-only", action="store_true",
                     help="build, then time the kernels (phase 5) and stop "
-                         "(no phase 7), "
+                         "(no phases 7 and 8), "
                          "printing their times as the last line; copied "
                          "into the root of another checkout, times that "
                          "checkout's kernels on the same card")
@@ -3087,6 +3266,8 @@ def main() -> int:
         if launches["watch"][name] == 0:
             raise AssertionError(f"the watch path never launched {name}")
     log(f"phase 7 done at {time.perf_counter() - t_start:.3f} s")
+    launches.update(phase_replay())
+    log(f"phase 8 done at {time.perf_counter() - t_start:.3f} s")
     loaded = [m for m in sys.modules
               if m in ("jax", "mvtrim_tpu") or m.startswith(("jax.",
                                                             "mvtrim_tpu."))]

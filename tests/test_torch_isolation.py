@@ -5,8 +5,9 @@ Two checks.  An AST scan of every module of the port and of
 or ``benchmarks`` and no relative import that climbs out of the package.
 A fresh interpreter imports every module of the port, runs ``python -m
 mvtrim_tpu_torch`` on a synthesized clip, its archive scan
-(``MVT_ARCHIVE=1``), the tune tool on it (also with ``--mesh``) and the
-bench's main on the CPU, and finds neither package in
+(``MVT_ARCHIVE=1``), the tune tool on it (also with ``--mesh``), the
+bench's main on the CPU and the pipeline over a recorded payload
+(``bench/replay.py``), and finds neither package in
 ``sys.modules`` afterwards (``mvtrim_tpu/__init__.py`` alone writes JAX
 cache variables into the environment, so even a jax-free module of that
 package must not load).
@@ -73,6 +74,8 @@ def test_modules_are_scanned():
                  "mvtrim_tpu_torch/bench/controls.py",
                  "mvtrim_tpu_torch/bench/__main__.py",
                  "mvtrim_tpu_torch/bench/soak_watch.py",
+                 "mvtrim_tpu_torch/bench/replay.py",
+                 "mvtrim_tpu_torch/bench/compare_reference.py",
                  "mvtrim_tpu_torch/ops/_build.py", "chip_smoke.py"):
         assert must in rels
 
@@ -106,6 +109,16 @@ def test_nothing_of_jax_loads(tmp_path):
         "    runpy.run_module('mvtrim_tpu_torch', run_name='__main__')\n"
         "except SystemExit as e:\n"
         "    assert e.code in (0, None), e.code\n"
+        "from mvtrim_tpu_torch.bench import compare_reference, replay\n"
+        "from mvtrim_tpu_torch.io import native\n"
+        "from mvtrim_tpu_torch.pipeline.pipeline import ProcessingPipeline\n"
+        "compare_reference.harness()\n"
+        "fx = replay.load('C')\n"
+        "real, native.VideoReader = native.VideoReader, replay.opener(fx)\n"
+        f"src = {str(tmp_path / 'replay.mp4')!r}\n"
+        "assert ProcessingPipeline(src, src + '.out', cfg=fx.config(\n"
+        "    scan_backend='torch', ffmpeg_bin=replay.FAKE_FFMPEG)).run() == 0\n"
+        "native.VideoReader = real\n"
         "bad = [m for m in sys.modules if m in ('jax', 'mvtrim_tpu')\n"
         "       or m.startswith(('jax.', 'mvtrim_tpu.'))]\n"
         "assert not bad, bad\n"
