@@ -50,13 +50,20 @@ by CUDA graph, and runs ``python -m mvtrim_tpu_torch.bench --quick``'s
 main in this process: its last line must be the headline JSON and every
 cell must pass its audit.  Its launches, counted from 0 just before it
 (a graph's capture counts each launch once), must include every kernel
-and control.  C1-C3 are the stream controls of K1, K6 and K4+K5's
-launches, C4 and C5 their compute controls, C6-C8 C3's launch over all M
-slots (``mv_bench.py``'s ``ctrl``, ``ctrlsub``, ``ctrlmm``), C9 K4+K5's
-body without the cluster rule (``noclu``) and C10 the one-hot vote
-product's shapes on the tensor cores (``mmctrl``).  Phase 2 fails unless
-the compiler's report names every kernel and ``cuobjdump -sass`` finds
-IMMA (integer tensor-core) instructions in C10's kernel.
+and control.  C1 and C2 are the stream controls of K1's and K6's
+launches, C4 and C5 the compute controls of K6 and K4+K5, C6-C8 K4+K5's
+launch over all M slots (``mv_bench.py``'s ``ctrl``, ``ctrlsub``,
+``ctrlmm``) and C10 the one-hot vote product's shapes on the tensor cores
+(``mmctrl``).  C3 (``ctrl`` by the count) and C9 (``noclu``: K4+K5's vote
+scatter without the cluster rule) run on a launch of their own (a frame
+to a small CTA, a persistent grid taking the frames in turn), and are
+also held at the counts that stress it (``RAGGED_EDGES``: all zero, one
+frame at M among zeros, B = 1 and 3, counts above M and negative, an odd
+M, more frames than the grid's CTAs, 8K's global histogram).
+``--times-only`` also times C3, C9 and K4+K5 at ``RAGGED_TIMING``.
+Phase 2 fails unless the compiler's report names every kernel and
+``cuobjdump -sass`` finds IMMA (integer tensor-core) instructions in
+C10's kernel.
 
 Phase 7 is the deployment.  7a runs ``python -m mvtrim_tpu_torch.ops._build``
 into a fresh MVT_COMPILE_CACHE and then, in a process that cannot reach
@@ -115,6 +122,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from mvtrim_tpu_torch import Config, GridGeometry, native, oracle  # noqa: E402
 from mvtrim_tpu_torch.bench import audit, controls, replay  # noqa: E402
+from mvtrim_tpu_torch.bench import mv as bench_mv  # noqa: E402
 from mvtrim_tpu_torch.bench.audit import (  # noqa: E402
     centre_cells, least_time, map_bytes, word_bound)
 from mvtrim_tpu_torch.models.mv_detector import MVClusterDetector  # noqa: E402
@@ -167,7 +175,7 @@ KERNELS = {
                                "mvtrim_tpu_torch/csrc/bench_controls.cu",
                                "benchmarks/mv_bench.py:400"),
     "mv_votes_control": (controls.mv_votes_control,
-                         "mvtrim_tpu_torch/csrc/mv_cluster.cu",
+                         "mvtrim_tpu_torch/csrc/bench_controls.cu",
                          "benchmarks/mv_bench.py:424"),
     "mv_matrix_control": (controls.mv_matrix_control,
                           "mvtrim_tpu_torch/csrc/bench_controls.cu",
@@ -181,7 +189,7 @@ KERNEL_FUNCTIONS = ("word_cluster_kernel", "cluster_map_kernel",
                     "mv_cluster_resident_kernel",
                     "word_stream_control_kernel",
                     "sad_stream_control_kernel", "mv_stream_control_kernel",
-                    "mv_capacity_control_kernel", "mv_votes_kernel",
+                    "mv_capacity_control_kernel", "mv_votes_control_kernel",
                     "mv_matrix_control_kernel")
 TENSOR_KERNEL = "mv_matrix_control_kernel"
 CONTROLS = tuple(controls.CONTROLS)
@@ -2411,8 +2419,9 @@ def phase_correctness_controls(seed: int) -> dict:
     memory; C2 and C4 on SAD windows, a base 1 B off too (one-byte loads);
     C3, C5 and C6-C10 at sparse and full counts (counts 0 and above M
     among them), C5 and C9 also with the global histogram, C10 also at
-    all-ones parity and M = 16,384 (every cell 16,384: integer, not TF32).
-    Returns name -> max |kernel - plain|."""
+    all-ones parity and M = 16,384 (every cell 16,384: integer, not TF32),
+    C3 and C9 also at RAGGED_EDGES.  Returns name -> max |kernel -
+    plain|."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 8)
     worst = dict.fromkeys(CONTROLS, 0)
 
@@ -2519,6 +2528,7 @@ def phase_correctness_controls(seed: int) -> dict:
               want, f"{w}x{h} M={m} all-ones parity")
         log(f"mv_matrix_control {w}x{h} M={m} all-ones parity (every cell "
             f"{m}, the grid's sum {total}): kernel == plain")
+    check_ragged_edges(check, gen)
     return worst
 
 
@@ -2541,6 +2551,93 @@ def check_new_mv_controls(check, mvs, counts, geom, label) -> None:
                                         cfg.block_shift), label)
     check("mv_matrix_control", controls.mv_matrix_control(mvs, geom),
           controls.mv_matrix_control_plain(mvs, geom), label)
+
+
+def ragged_edge_counts(gen, b: int, m: int) -> dict:
+    """The counts that stress C3's and C9's launch (a frame to a CTA of a
+    persistent grid), b
+    frames at capacity m: label -> int32 [b] on the card."""
+    def sparse():
+        u = torch.rand((b,), generator=gen, device="cuda")
+        return torch.exp(u * math.log(m)).to(torch.int32)
+
+    zeros = torch.zeros((b,), dtype=torch.int32, device="cuda")
+    one = zeros.clone()
+    one[b // 2] = m
+    negative = sparse()
+    negative[::5] = -7
+    negative[1::97] = -2 ** 31
+    above = sparse()
+    above[::3] = m + 1
+    above[1::50] = 2 ** 31 - 1
+    return {"all zero": zeros, "one frame at M among zeros": one,
+            "negative counts": negative, "counts above M": above,
+            "sparse": sparse(),
+            "full": torch.full((b,), m, dtype=torch.int32, device="cuda")}
+
+
+# (width, height, M, B, labels of ragged_edge_counts or None for all)
+RAGGED_EDGES = (
+    (1920, 1080, 8192, 2048, None),
+    (3840, 2160, 16384, 512, None),
+    (1920, 1080, 8192, 1, ("one frame at M among zeros", "sparse")),
+    (1920, 1080, 8192, 3, ("one frame at M among zeros", "counts above M")),
+    (1920, 1080, 8191, 777, ("sparse", "full", "counts above M")),  # odd M
+    (1920, 1080, 512, 5000, ("sparse", "one frame at M among zeros",
+                             "negative counts")),  # frames past the grid
+    (7680, 4320, 8192, 64, ("one frame at M among zeros", "sparse")),
+)
+
+
+def check_ragged_edges(check, gen) -> None:
+    """C3 and C9 vs their plain versions, exact, at RAGGED_EDGES: all-zero
+    counts, one frame at M among zeros (the batch's work in one frame),
+    B = 1 and 3 (fewer frames than CTAs), counts above M, negative counts,
+    sparse and full at 1080p and 4K, an odd M and a base 8 bytes off a
+    16-byte boundary (one MV a load), more frames than the grid's CTAs,
+    and 8K, whose histogram takes C9's global scratch.  Each call must
+    count one launch on its wrapper."""
+    cfg = Config()
+    bound = mv_ops.threshold_bound(cfg.mv_threshold_sq)
+
+    def counted_call(wrapper, call):
+        before = wrapper.launches
+        out = call()
+        if wrapper.launches != before + 1:
+            raise AssertionError(f"{wrapper.__name__} counted "
+                                 f"{wrapper.launches - before} launches")
+        return out
+
+    for w, h, m, b, labels in RAGGED_EDGES:
+        geom = GridGeometry.build(w, h, cfg)
+        cases = ragged_edge_counts(gen, b, m)
+        mvs = device_mvs(gen, cases["full"], m, w, h)
+        bases = [(mvs, "16-byte aligned")]
+        if m % 2 == 0 and b <= 2048:
+            bases.append((offset_copy(mvs, 8), "8 bytes off"))
+        glob = controls.votes_scratch_cells(b, geom, 0) > 0
+        if glob != (w == 7680):
+            raise AssertionError(f"C9 at {w}x{h}: global histogram {glob}")
+        for label in labels or tuple(cases):
+            counts = cases[label]
+            for base, where in bases:
+                text = f"{w}x{h} M={m} B={b} {label}, base {where}"
+                check("mv_stream_control", counted_call(
+                    controls.mv_stream_control,
+                    lambda: controls.mv_stream_control(base, counts)),
+                    controls.mv_stream_control_plain(base, counts), text)
+                check("mv_votes_control", counted_call(
+                    controls.mv_votes_control,
+                    lambda: controls.mv_votes_control(
+                        base, counts, geom, bound, cfg.block_shift)),
+                    controls.mv_votes_control_plain(
+                        base, counts, geom, bound, cfg.block_shift), text)
+        log(f"mv_stream_control, mv_votes_control {w}x{h} M={m} B={b} "
+            f"({', '.join(labels or tuple(cases))}; "
+            f"{'global' if glob else 'shared-memory'} histogram; "
+            f"{len(bases)} bases): kernel == plain, one launch a call")
+        del mvs, bases
+    torch.cuda.empty_cache()
 
 
 def _control_time(name: str, fn, plain, inputs, per_input, nbytes: float,
@@ -2687,6 +2784,80 @@ def time_new_mv_controls(sets, geom: GridGeometry, rows: float,
     log(f"torch.sum(mvs, dim=(1, 2), dtype=torch.int32) 1080p M={m} on "
         f"{card}: {lib_ms * 1e3:.3f} us a call (events; C6's bytes, the "
         f"count add excluded)")
+    return out
+
+
+# (label, (width, height), M, counts): where --times-only times C3, C9
+# and K4+K5 by CUDA graph: phase 6's shape (counts log-uniform in 1..M)
+# and the bench's mv cells (bench/mv.py: log-uniform in 64..2048, full)
+RAGGED_TIMING = (("1080p M=8192 1..M", (1920, 1080), 8192, "1..M"),
+                 ("1080p M=8192 sparse", (1920, 1080), 8192, "sparse"),
+                 ("1080p M=8192 full", (1920, 1080), 8192, "full"),
+                 ("4K M=16384 sparse", (3840, 2160), 16384, "sparse"),
+                 ("4K M=16384 full", (3840, 2160), 16384, "full"))
+
+
+def ragged_counts(gen, b: int, m: int, mode: str) -> torch.Tensor:
+    if mode == "full":
+        return torch.full((b,), m, dtype=torch.int32, device="cuda")
+    u = torch.rand((b,), generator=gen, device="cuda", dtype=torch.float64)
+    lo, hi = (1, m - 1) if mode == "1..M" else bench_mv.SPARSE
+    return torch.exp(math.log(lo) + u * (math.log(hi + 1) - math.log(lo))
+                     ).to(torch.int32).clamp(max=m)
+
+
+def time_ragged(seed: int, card: str) -> dict:
+    """C3, C9 and K4+K5 at RAGGED_TIMING, B = 2048, each by CUDA graph (64
+    launches over buffers rotated past the L2, three replays), checksummed
+    against the plain versions: label -> name -> the replays' µs a
+    launch, and C3's and C9's bound."""
+    cfg = Config()
+    bnd = mv_ops.threshold_bound(cfg.mv_threshold_sq)
+    shift = cfg.block_shift
+    gen = torch.Generator(device="cuda").manual_seed(seed + 12)
+    b = 2048
+    out = {}
+    for label, (w, h), m, mode in RAGGED_TIMING:
+        geom = GridGeometry.build(w, h, cfg)
+        sets, held = [], 0
+        while len(sets) < 2 or held < audit.ROTATED_BYTES:
+            counts = ragged_counts(gen, b, m, mode)
+            sets.append((device_mvs(gen, counts, m, w, h), counts))
+            held += int(counts.sum()) * 8
+        rows = sum(int(c.sum()) for _, c in sets) / len(sets)
+        pairs = {
+            "mv_stream_control": (
+                lambda fc: controls.mv_stream_control(*fc),
+                lambda fc: controls.mv_stream_control_plain(*fc)),
+            "mv_votes_control": (
+                lambda fc: controls.mv_votes_control(fc[0], fc[1], geom, bnd,
+                                                     shift),
+                lambda fc: controls.mv_votes_control_plain(
+                    fc[0], fc[1], geom, bnd, shift)),
+            "mv_cluster_counts": (
+                lambda fc: mv_ops.mv_cluster_op(
+                    fc[0], fc[1], geom, bnd, cfg.vectors_needed,
+                    cfg.clusters_needed, shift)[0],
+                lambda fc: mv_ops.mv_cluster_counts_plain(
+                    fc[0], fc[1], geom, bnd, cfg.vectors_needed, shift))}
+        res = {}
+        for name, (fn, plain) in pairs.items():
+            ref = [int(plain(fc).sum()) for fc in sets]
+            t = audit.graph_time(fn, sets, max(64, len(sets)), ref, 3)
+            if not t["checksum_ok"]:
+                raise AssertionError(f"{name} {label}: graph checksum")
+            res[name] = t["runs_us"]
+        bound = least_time(rows * 8 + b * 8, rows * 12)
+        res["bound_us"] = bound["bound_ms"] * 1e3
+        log(f"C3, C9, K4+K5 {label} B={b} ({rows / b:.1f} MVs a "
+            f"frame, {len(sets)} buffers) on {card}: C3 "
+            f"{res['mv_stream_control']} us, C9 {res['mv_votes_control']} "
+            f"us, K4+K5 {res['mv_cluster_counts']} us a launch (CUDA "
+            f"graph); C3/C9 bound {res['bound_us']:.3f} us by "
+            f"{bound['bound_by']}")
+        out[label] = res
+        del sets
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3213,8 +3384,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--times-only", action="store_true",
-                    help="build, then time the kernels (phase 5) and stop "
-                         "(no phases 7 and 8), "
+                    help="build, then time the kernels (phase 5) and C3, "
+                         "C9 and K4+K5 at RAGGED_TIMING, and stop "
                          "printing their times as the last line; copied "
                          "into the root of another checkout, times that "
                          "checkout's kernels on the same card")
@@ -3229,10 +3400,12 @@ def main() -> int:
     phase_build()
     if args.times_only:
         times = phase_timing(rng, args.seed, card)
+        ragged = time_ragged(args.seed, card)
         cells = times["word_cluster_counts"]["cells"]
         print(json.dumps({
             "times_us": {name: round(t["ms"] * 1e3, 3)
                          for name, t in times.items()},
+            "ragged_us": ragged,
             "word_cluster": {key: {k: v for k, v in c.items()
                                    if k not in ("bound_by",)}
                              for key, c in cells.items()}}))

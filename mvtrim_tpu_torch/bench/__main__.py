@@ -38,7 +38,10 @@ MEASUREMENTS = {"kernel": "kernel", "op": "whole op (K6 + K3)",
                 "capacity_mm_control": "C8 capacity control, low bytes",
                 "matrix_control": "C10 tensor-core matrix control"}
 # (numerator, denominator, label): ratios of device time a line names
-RATIOS = (("kernel", "votes_control", "K4+K5 over C9"),
+RATIOS = (("kernel", "votes_control",
+           "K4+K5 over C9 (what C9's launch could gain)"),
+          ("votes_control", "stream_control",
+           "C9 over C3 (the scatter against the stream)"),
           ("stream_control", "capacity_control", "C3 over C6"))
 AUDIT = ("CUDA graph of N launches over K rotated buffers (K x the bytes "
          "a launch reads >= 100 MB), device time between two events; "

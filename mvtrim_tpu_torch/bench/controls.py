@@ -9,22 +9,28 @@ costs:
   reads and do trivial integer arithmetic: their rate is the practical
   memory ceiling of that launch.  C1 ``word_stream_control`` follows K1
   (``cluster_bits_op`` / ``cluster_words_op``), C2 ``sad_stream_control``
-  K6 (``sad_grid_op``), C3 ``mv_stream_control`` K4+K5
-  (``mv_cluster_op``).
+  K6 (``sad_grid_op``).
+* C3 ``mv_stream_control`` and C9 ``mv_votes_control`` (``noclu``) read
+  K4+K5's ragged payload (``mv_cluster_op``) on a launch made for the card
+  (``csrc/bench_controls.cu``: a frame to a small CTA, a persistent grid
+  taking the frames in turn): C3 streams the rows below the counts with a
+  trivial sum, what the card can stream of the payload; C9 scatters every
+  MV K4+K5's keep rule keeps into a 32-bit histogram and counts them,
+  what the card can scatter of it.  K4+K5 against C9 is what moving
+  K4+K5 onto this launch could gain, C9 against C3 the scatter's own
+  cost.
 * the compute controls are the product bodies of ``csrc/sad_block.cu``
   (C4 ``sad_compute_control``) and ``csrc/mv_cluster.cu`` (C5
   ``mv_compute_control``) instantiated a second time with the frame index
   held at one resident frame, so the same loads and arithmetic run from
   the L2: their rate is the arithmetic ceiling of the product body.
-* the capacity controls (``csrc/bench_controls.cu``) are C3's launch over
-  all M slots a frame, as ``benchmarks/mv_bench.py``'s TPU controls read
-  them: C6 ``mv_capacity_control`` (``ctrl``), C7
+* the capacity controls (``csrc/bench_controls.cu``) are K4+K5's launch
+  (one CTA a frame) over all M slots a frame, as
+  ``benchmarks/mv_bench.py``'s TPU controls read them: C6
+  ``mv_capacity_control`` (``ctrl``), C7
   ``mv_capacity_control_sub`` (``ctrlsub``, a second copy of dst_x), C8
   ``mv_capacity_control_mm`` (``ctrlmm``, the fields' low bytes).  C6
   against C3 is what reading by capacity, not by count, costs.
-* C9 ``mv_votes_control`` (``noclu``) is K4+K5's body a third time with
-  the vote scatter kept and the cluster rule dropped: K4+K5 against C9 is
-  the rule's share.
 * C10 ``mv_matrix_control`` (``mmctrl``) runs the shapes of the TPU's
   one-hot vote product on the tensor cores (int8 operands, int32 sums):
   what the scatter as a matrix product would cost on the card.  C5, not
@@ -37,6 +43,8 @@ paths calls them.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -177,7 +185,7 @@ def sad_compute_control(luma: torch.Tensor, geom: GridGeometry,
 sad_compute_control.launches = 0
 
 
-# --- C3: K4+K5's launch ---
+# --- C3: K4+K5's payload, a frame to a small CTA ---
 
 def mv_stream_control_plain(mvs: torch.Tensor,
                             counts: torch.Tensor) -> torch.Tensor:
@@ -192,8 +200,8 @@ def mv_stream_control_plain(mvs: torch.Tensor,
 
 
 def mv_stream_control(mvs: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
-    """K4+K5's payload -> int32 [B], the stream control of its launch
-    (``mv_stream_control_plain``)."""
+    """K4+K5's payload -> int32 [B], the stream of its rows below the
+    counts (``mv_stream_control_plain``)."""
     mv_ops._check_mvs(mvs, counts)
     if _on(mvs, "mv_stream_control") == "cpu":
         return mv_stream_control_plain(mvs, counts)
@@ -365,12 +373,25 @@ def mv_votes_control_plain(mvs: torch.Tensor, counts: torch.Tensor,
     return keep.sum(dim=1, dtype=torch.int64).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=256)
+def votes_scratch_cells(batch: int, geom: GridGeometry,
+                        device_index: int) -> int:
+    """int32 cells of global histogram scratch C9 needs, 0 where its
+    histograms fit in shared memory (the kernel's own answer)."""
+    with torch.cuda.device(device_index):
+        cells = _build.load_library().mvt_mv_votes_scratch(
+            batch, geom.gh, geom.gw, geom.y_min, geom.y_max)
+    if cells < 0:
+        raise RuntimeError(f"scratch query failed: CUDA error {-cells}")
+    return cells
+
+
 def mv_votes_control(mvs: torch.Tensor, counts: torch.Tensor,
                      geom: GridGeometry, bound: int,
                      block_shift: int) -> torch.Tensor:
-    """K4+K5's payload, geometry, bound and shift -> int32 [B] from its
-    body with the vote scatter kept and the rule dropped
-    (``mv_votes_control_plain``)."""
+    """K4+K5's payload, geometry, bound and shift -> int32 [B]
+    (``mv_votes_control_plain``) from the vote scatter into one 32-bit
+    histogram a frame, without the rule."""
     mv_ops._check_mvs(mvs, counts)
     bound = max(-(1 << 63), min(int(bound), (1 << 63) - 1))
     if _on(mvs, "mv_votes_control") == "cpu":
@@ -378,7 +399,7 @@ def mv_votes_control(mvs: torch.Tensor, counts: torch.Tensor,
     b, m, _ = mvs.shape
     dev = mvs.device
     sums = mvs.new_empty((b,), dtype=torch.int32)
-    cells = mv_ops._scratch_cells(b, geom, mv_ops._device_index(dev), False)
+    cells = votes_scratch_cells(b, geom, mv_ops._device_index(dev))
     scratch = torch.empty((cells,), dtype=torch.int32, device=dev) \
         if cells else None
     _build.launch("mvt_mv_votes_control", mv_votes_control, dev,

@@ -1,11 +1,13 @@
-"""The mv family: K4+K5 (``csrc/mv_cluster.cu``) beside C3, the stream
-control of its launch, C5, its body over one resident frame, C6, C3's
-launch over all M slots (capacity, not count), C9, its body without the
-cluster rule, and its bound; at full counts also C7 and C8 (C6 with a
-second dst_x stream, with the fields' low bytes) and C10, the one-hot vote
-product's shapes on the tensor cores.  Each cell's line names K4+K5 over
-C9 (the whole body against its vote scatter: what the rule adds) and C3
-over C6 (reading by count against reading by capacity).
+"""The mv family: K4+K5 (``csrc/mv_cluster.cu``) beside C3, the rows below
+the counts streamed on a launch of small CTAs that take the frames in
+turn, C5, its body over one resident frame, C6, its launch over all M
+slots (capacity, not count), C9, its vote scatter without the cluster rule
+on C3's kind of launch, and its bound; at full counts also C7 and C8 (C6
+with a second dst_x stream, with the fields' low bytes) and C10, the
+one-hot vote product's shapes on the tensor cores.  Each cell's line names
+K4+K5 over C9 (what moving K4+K5 onto C9's launch could gain), C9 over C3
+(the scatter against the stream of the same rows) and C3 over C6 (reading
+by count against reading by capacity).
 
 The port's counterpart of ``benchmarks/mv_bench.py`` and of ``bench.py``'s
 fused-MV secondary: B = 2048 frames a launch at 1080p (capacity M = 8192)
@@ -149,7 +151,7 @@ def run(r: audit.Run) -> list[dict]:
                 [int(controls.mv_votes_control_plain(
                     f, c, geom, bnd, shift).sum()) for f, c in inputs],
                 n=n, nbytes=rows * 8 + b * 8, frames=b,
-                kernel="mv_votes_kernel", ops=rows * 12)}
+                kernel="mv_votes_control_kernel", ops=rows * 12)}
         if counts_mode == "full":
             out.update(full_count_controls(r, inputs, geom, n))
         # about 12 integer operations an MV (two differences, two products,

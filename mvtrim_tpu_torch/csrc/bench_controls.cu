@@ -1,10 +1,13 @@
-// Stream controls for Hopper (sm_90a): for three of the port's kernels, a
-// kernel with the same launch (grid, CTA shape, frames a CTA, load width)
-// that reads every byte the product kernel reads and does trivial,
-// integer-exact arithmetic on it.  Its time is the practical memory ceiling
-// of that launch on the card, the yardstick the bench
-// (mvtrim_tpu_torch/bench/) holds each product kernel to, beside the bound.
-// Nothing on the scan paths calls them.
+// The bench's controls for Hopper (sm_90a).  C1, C2 and C6-C8 keep a
+// product kernel's launch (grid, CTA shape, frames a CTA, load width), read
+// every byte the product kernel reads and do trivial, integer-exact
+// arithmetic on it: their time is the practical memory ceiling of that
+// launch on the card.  C3 and C9 read K4+K5's ragged payload on a launch of
+// their own, made for this card: what the card can stream of it, and what
+// it can scatter of it.  C10 runs the one-hot vote
+// product's shapes on the tensor cores.  The bench
+// (mvtrim_tpu_torch/bench/) holds the product kernels to them, beside the
+// bound.  Nothing on the scan paths calls them.
 //
 // C1 mvt_word_stream_control replaces the TPU kernel bench.py's
 // build_control_sweep_T (benchmarks/word_bench.py's tctrl) and follows K1
@@ -29,18 +32,46 @@
 // first frame, one block of B frames).  The carry's bits of frames b > 0 are
 // loaded and masked to zero, so every CTA reads both planes.
 //
-// C3 mvt_mv_stream_control follows K4+K5 (mv_cluster.cu): one 512-thread
-// CTA a frame, one 8-byte short4 load an MV, eight in flight a thread, and
-// a loop bound equal to the count:
-//   sums[b] = count[b] + sum over k < min(count[b], M) of
+// C3 mvt_mv_stream_control replaces mv_bench.py:469's ctrl as K4+K5 reads
+// the payload, by the count:
+//   sums[b] = count[b] + sum over k < clamp(count[b], 0, M) of
 //             dst_x + dst_y + src_x + src_y,
-// widened to 32 bits and wrapped mod 2^32.  It equals mv_bench.py's ctrl
-// at full counts only: like K4+K5 it reads only the rows below the count.
+// widened to 32 bits and wrapped mod 2^32 (mv_bench.py's ctrl at full counts
+// only).  C9 mvt_mv_votes_control replaces mv_bench.py:469's noclu: every
+// MV K4+K5's keep rule keeps (mv_keep.cuh) adds one vote to its cell of a
+// 32-bit histogram in shared memory, and
+//   sums[b] = the kept MVs of frame b (the sum of its votes).
+// What bounds them: the live rows, 8 bytes an MV, read once (14.9 MB at
+// 1080p, M = 8192, B = 2048, counts log-uniform in 1..M: 4.4 us at 3.35
+// TB/s).  On K4+K5's launch (one 512-thread CTA a frame, 2048 CTAs, about
+// four waves) they reached 23% (C9) and 32% (C3) of that: at sparse counts
+// most of a CTA's threads issued no load, and each CTA paid a DRAM round
+// trip, a block reduction and its start; C9 also zeroed the 7,440-cell
+// histogram each frame.  Here a frame goes to a small CTA (C3 128 threads;
+// C9 256, with the frame's histogram, or 512 where the histogram passes 48
+// KB), and a persistent grid of as many CTAs as the card holds takes the
+// frames in turn, so a sparse batch is one wave of CTAs whose threads
+// mostly load.  Units of two MVs are read by 16-byte loads (8-byte ones
+// for an odd M or a payload 8 bytes off a 16-byte boundary), eight (C3) or
+// four (C9) a thread issued before any is used.  Each frame's result is
+// one CTA's, stored once: no atomics across CTAs, nothing to zero first.
+// C9 zeroes its histogram once a launch, and after each frame clears only
+// the cells its threads hit, from the indices they still hold (all cells
+// where the frame took more than one pass).  A frame with more MVs than a
+// CTA's pass (C3: 2,048; C9: 2,048 at 1080p) takes several passes of the
+// same CTA, which sets the tail at counts near M.  A histogram past a
+// block's shared memory (7680x4320 at the default BLOCK_SHIFT 4: 468 KB)
+// takes a global scratch histogram a CTA.  A launch that split the rows
+// themselves evenly over the grid (a scan of the counts in each CTA,
+// atomics into zeroed sums) measured slower at these batches: its fixed
+// part cost more than the balance saved (PERF.md).
 //
 // C6-C8 mvt_mv_capacity_control replace mv_bench.py's ctrl, ctrlsub and
-// ctrlmm: C3's launch with the loop bound M, not the count, since the TPU
-// controls read every slot.  The payload ships M slots a frame whatever
-// the count, so C6 against C3 is what reading by capacity costs.
+// ctrlmm on K4+K5's launch (one 512-thread CTA a frame, one 8-byte short4
+// load an MV, eight in flight a thread) with the loop bound M, not the
+// count, since the TPU controls read every slot.  The payload ships M slots
+// a frame whatever the count, so C6 against C3 is what reading by capacity
+// costs.
 //   C6 (ctrl)     sums[b] = count[b] + sum over k < M of the four fields;
 //   C7 (ctrlsub)  C6 + sum over k < M of sub[b, k], a second copy of dst_x
 //                 (int16 [B, M]) that the caller fills; on the TPU it was a
@@ -61,20 +92,23 @@
 // the tensor cores (mma.sync m16n8k32, s8 x s8 -> s32), never TF32; exact,
 // each cell is at most M.
 //
-// What bounds them: C1-C3 and C6-C8 bytes, as their product kernels at
-// those launches (the arithmetic is a mask, an add or a popcount a load);
-// C10 the tensor cores' int8 rate (2 gh_p gw_p M B operations against
+// What bounds them: C1-C3 and C6-C9 bytes, as their product kernels at
+// those launches (the arithmetic is a mask, an add or a popcount a load;
+// C9's keep rule and atomic about 12 integer operations an MV); C10 the
+// tensor cores' int8 rate (2 gh_p gw_p M B operations against
 // 8 M B bytes).
 
 #include <algorithm>
 #include <atomic>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
 #include "cluster_words.cuh"
 #include "frame_span.cuh"
 #include "launch.cuh"
+#include "mv_keep.cuh"
 
 namespace {
 
@@ -82,7 +116,6 @@ using mvt::kFullMask;
 using mvt::kMaxFrames;
 
 constexpr uint32_t kBit0 = 0x01010101u;  // bit 0 of each byte of a word
-constexpr int kMvThreads = 512;
 
 // --- C1: K1's launch ---
 
@@ -259,30 +292,298 @@ void launch_sad(const void* luma, int batch, int height, int width,
         static_cast<int32_t*>(grid));
 }
 
-// --- C3: K4+K5's launch ---
+// --- C3 and C9: the ragged payload, a frame to a small CTA ---
 
-__global__ void __launch_bounds__(kMvThreads)
+// C3's CTA and its loads a thread before it uses any; C9's CTA where a
+// histogram of at most kNarrowHistBytes leaves room for several CTAs an
+// SM, else kWideThreads, and its loads a thread.
+constexpr int kStreamThreads = 128;
+constexpr int kStreamUnroll = 8;
+constexpr int kVotesThreads = 256;
+constexpr int kWideThreads = 512;
+constexpr int kVotesUnroll = 4;
+constexpr int kNarrowHistBytes = 48 * 1024;
+
+// A frame's live rows as units: two MVs (16 bytes) when M is even and the
+// payload 16-byte aligned, else one (8 bytes).
+template <int kRows>
+using Unit = typename std::conditional<kRows == 2, int4, uint2>::type;
+
+// An MV from the two 32-bit words of its 8 bytes (little-endian fields).
+__device__ __forceinline__ short4 words_mv(uint32_t lo, uint32_t hi) {
+    return make_short4(static_cast<short>(lo & 0xffffu),
+                       static_cast<short>(lo >> 16),
+                       static_cast<short>(hi & 0xffffu),
+                       static_cast<short>(hi >> 16));
+}
+
+// Unit k's first and second MV; the second is live while 2k + 1 < n.
+template <int kRows>
+__device__ __forceinline__ short4 first_mv(const Unit<kRows>& u) {
+    return words_mv(static_cast<uint32_t>(u.x), static_cast<uint32_t>(u.y));
+}
+__device__ __forceinline__ short4 second_mv(const int4& u) {
+    return words_mv(static_cast<uint32_t>(u.z), static_cast<uint32_t>(u.w));
+}
+
+__device__ __forceinline__ uint32_t field_sum(short4 mv) {
+    return static_cast<uint32_t>(static_cast<int>(mv.x) + mv.y + mv.z +
+                                 mv.w);
+}
+
+// C3.  The CTAs take the frames in turn; a frame's units are strided over
+// the CTA's threads, kStreamUnroll loads a thread issued before any is used.
+template <int kRows>
+__global__ void __launch_bounds__(kStreamThreads)
 mv_stream_control_kernel(const short4* __restrict__ mvs,
-                         const int32_t* __restrict__ mv_counts, int m,
-                         int32_t* __restrict__ sums) {
+                         const int32_t* __restrict__ mv_counts, int batch,
+                         int m, int32_t* __restrict__ sums) {
     __shared__ uint32_t warp_sums[32];
-    const int b = blockIdx.x;
-    const int count = mv_counts[b];
-    const int n = min(max(count, 0), m);
-    const short4* f = mvs + static_cast<size_t>(b) * m;
-    uint32_t total = 0;
-#pragma unroll 8
-    for (int k = threadIdx.x; k < n; k += kMvThreads) {
-        const short4 mv = __ldg(f + k);
-        total += static_cast<uint32_t>(static_cast<int>(mv.x) + mv.y + mv.z +
-                                       mv.w);
+    for (int f = blockIdx.x; f < batch; f += gridDim.x) {
+        const int count = mv_counts[f];
+        const int n = min(max(count, 0), m);
+        const int units = (n + kRows - 1) / kRows;
+        const Unit<kRows>* src = reinterpret_cast<const Unit<kRows>*>(
+            mvs + static_cast<size_t>(f) * m);
+        uint32_t total = 0;
+        for (int k0 = threadIdx.x; k0 < units;
+             k0 += kStreamThreads * kStreamUnroll) {
+            Unit<kRows> u[kStreamUnroll];
+#pragma unroll
+            for (int j = 0; j < kStreamUnroll; ++j) {
+                const int k = k0 + j * kStreamThreads;
+                u[j] = __ldg(src + (k < units ? k : 0));
+            }
+#pragma unroll
+            for (int j = 0; j < kStreamUnroll; ++j) {
+                const int k = k0 + j * kStreamThreads;
+                if (k >= units) continue;
+                total += field_sum(first_mv<kRows>(u[j]));
+                if constexpr (kRows == 2)
+                    if (2 * k + 1 < n) total += field_sum(second_mv(u[j]));
+            }
+        }
+        // block_sum's barrier also keeps the next frame's warp sums apart
+        total = mvt::block_sum(total, warp_sums);
+        if (threadIdx.x == 0)
+            sums[f] =
+                static_cast<int32_t>(total + static_cast<uint32_t>(count));
+        __syncthreads();
     }
-    total = mvt::block_sum(total, warp_sums);
-    if (threadIdx.x == 0)
-        sums[b] = static_cast<int32_t>(total + static_cast<uint32_t>(count));
+}
+
+// C9.  The CTAs take the frames in turn, each CTA with one 32-bit histogram
+// of the window's rows x gw cells (in shared memory after its warp sums, or
+// a global scratch of `stride` cells a CTA), zeroed once.  Each kept MV of
+// the frame adds one vote to its cell; a barrier (here the frame's votes
+// are whole, where K4+K5's rule would read them); then the cells are
+// cleared: those the threads hit, from the indices they still hold, when
+// the frame took one pass, else all of them.
+template <int kRows, bool kShared, int kThreads>
+__global__ void __launch_bounds__(kThreads)
+mv_votes_control_kernel(const short4* __restrict__ mvs,
+                        const int32_t* __restrict__ mv_counts, int batch,
+                        int m, int gh, int gw, int y_min, int y_max,
+                        long long bound, int shift,
+                        int32_t* __restrict__ scratch, int stride,
+                        int32_t* __restrict__ kept) {
+    // (uint8_t, as the other kernels of this file declare it)
+    extern __shared__ __align__(16) uint8_t smem[];
+    uint32_t* warp_sums = reinterpret_cast<uint32_t*>(smem);
+    int32_t* hist =
+        kShared ? reinterpret_cast<int32_t*>(smem + 32 * 4)
+                : scratch + static_cast<size_t>(blockIdx.x) * stride;
+    const int y_lo = mvt::window_lo(y_min);
+    const int y_hi = y_lo + mvt::window_rows(gh, y_min, y_max);
+    int4* quads = reinterpret_cast<int4*>(hist);
+    for (int i = threadIdx.x; i < stride >> 2; i += kThreads)
+        quads[i] = make_int4(0, 0, 0, 0);
+    __syncthreads();
+    for (int f = blockIdx.x; f < batch; f += gridDim.x) {
+        const int n = min(max(mv_counts[f], 0), m);
+        const int units = (n + kRows - 1) / kRows;
+        const Unit<kRows>* src = reinterpret_cast<const Unit<kRows>*>(
+            mvs + static_cast<size_t>(f) * m);
+        uint32_t total = 0;
+        int cell[kVotesUnroll][2];
+#pragma unroll
+        for (int j = 0; j < kVotesUnroll; ++j) cell[j][0] = cell[j][1] = -1;
+        for (int k0 = threadIdx.x; k0 < units;
+             k0 += kThreads * kVotesUnroll) {
+            Unit<kRows> u[kVotesUnroll];
+#pragma unroll
+            for (int j = 0; j < kVotesUnroll; ++j) {
+                const int k = k0 + j * kThreads;
+                u[j] = __ldg(src + (k < units ? k : 0));
+            }
+#pragma unroll
+            for (int j = 0; j < kVotesUnroll; ++j) {
+                const int k = k0 + j * kThreads;
+                int r, gx;
+                cell[j][0] = cell[j][1] = -1;
+                if (k < units &&
+                    mvt::kept_cell(first_mv<kRows>(u[j]), bound, shift, gw,
+                                   y_lo, y_hi, r, gx))
+                    cell[j][0] = r * gw + gx;
+                if constexpr (kRows == 2)
+                    if (k < units && 2 * k + 1 < n &&
+                        mvt::kept_cell(second_mv(u[j]), bound, shift, gw,
+                                       y_lo, y_hi, r, gx))
+                        cell[j][1] = r * gw + gx;
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                    if (cell[j][h] >= 0) {
+                        atomicAdd(hist + cell[j][h], 1);
+                        ++total;
+                    }
+            }
+        }
+        // block_sum's barrier follows every thread's votes
+        total = mvt::block_sum(total, warp_sums);
+        if (threadIdx.x == 0) kept[f] = static_cast<int32_t>(total);
+        if (units <= kThreads * kVotesUnroll) {
+#pragma unroll
+            for (int j = 0; j < kVotesUnroll; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                    if (cell[j][h] >= 0) hist[cell[j][h]] = 0;
+        } else {
+            for (int i = threadIdx.x; i < stride >> 2; i += kThreads)
+                quads[i] = make_int4(0, 0, 0, 0);
+        }
+        __syncthreads();  // cleared before the next frame's votes
+    }
+}
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory on `device` and
+// returns how many of its CTAs of `threads` an SM holds: asked of the CUDA
+// runtime only for a size not asked before (the last one cached a device
+// and kTag, one tag a kernel), so a CUDA graph captures launches without
+// those calls once eager launches at the same shapes have run.
+template <int kTag>
+cudaError_t ctas_per_sm(const void* kernel, int threads, int device,
+                        size_t smem, int* ctas) {
+    static std::atomic<long long> cached[mvt::kMaxDevices];  // smem << 8 | n
+    const bool cache = device >= 0 && device < mvt::kMaxDevices;
+    if (cache) {
+        const long long v = cached[device].load(std::memory_order_relaxed);
+        if (v != 0 && static_cast<size_t>(v >> 8) == smem) {
+            *ctas = static_cast<int>(v & 255);
+            return cudaSuccess;
+        }
+    }
+    cudaError_t err = cudaSuccess;
+    if (smem > 48 * 1024)
+        err = cudaFuncSetAttribute(kernel,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   static_cast<int>(smem));
+    if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kernel,
+                                                            threads, smem);
+    if (err == cudaSuccess && *ctas < 1) err = cudaErrorInvalidConfiguration;
+    if (err == cudaSuccess && cache)
+        cached[device].store(static_cast<long long>(smem) << 8 | *ctas,
+                             std::memory_order_relaxed);
+    return err;
+}
+
+// A persistent grid of `kernel`: every CTA the card holds at once, at most
+// one a frame.
+template <int kTag>
+cudaError_t persistent_grid(const void* kernel, int threads, int device,
+                            size_t smem, int batch, int* blocks) {
+    int sms = 0, ctas = 0;
+    cudaError_t err =
+        mvt::device_attribute<cudaDevAttrMultiProcessorCount>(device, &sms);
+    if (err == cudaSuccess)
+        err = ctas_per_sm<kTag>(kernel, threads, device, smem, &ctas);
+    *blocks = std::min(batch, sms * ctas);
+    return err;
+}
+
+template <int kRows>
+int launch_stream(const void* mvs, const void* mv_counts, int batch, int m,
+                  void* sums, int device, cudaStream_t s) {
+    int blocks = 0;
+    const cudaError_t err = persistent_grid<kRows - 1>(
+        reinterpret_cast<const void*>(&mv_stream_control_kernel<kRows>),
+        kStreamThreads, device, 0, batch, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    mv_stream_control_kernel<kRows><<<blocks, kStreamThreads, 0, s>>>(
+        static_cast<const short4*>(mvs),
+        static_cast<const int32_t*>(mv_counts), batch, m,
+        static_cast<int32_t*>(sums));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The histogram's cells a CTA, rounded up to 16 bytes.
+int votes_stride(int gh, int gw, int y_min, int y_max) {
+    return (mvt::window_rows(gh, y_min, y_max) * gw + 3) & ~3;
+}
+
+// C9's dynamic shared memory: the warp sums, then the histogram.
+size_t votes_smem(int stride, bool shared) {
+    return 32 * 4 + (shared ? static_cast<size_t>(stride) * 4 : 0);
+}
+
+template <int kRows, bool kShared, int kThreads>
+int launch_votes(const void* mvs, const void* mv_counts, int batch, int m,
+                 int gh, int gw, int y_min, int y_max, long long bound,
+                 int shift, void* scratch, long long scratch_cells,
+                 void* kept, int device, cudaStream_t s) {
+    const int stride = votes_stride(gh, gw, y_min, y_max);
+    const size_t smem = votes_smem(stride, kShared);
+    int blocks = 0;
+    const cudaError_t err =
+        persistent_grid<2 + (kRows - 1) + 2 * kShared + 4 * (kThreads != 512)>(
+            reinterpret_cast<const void*>(
+                &mv_votes_control_kernel<kRows, kShared, kThreads>),
+            kThreads, device, smem, batch, &blocks);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (!kShared) {
+        // one histogram of scratch a CTA
+        const long long fit = scratch_cells / stride;
+        if (fit < 1) return static_cast<int>(cudaErrorInvalidValue);
+        blocks = static_cast<int>(std::min<long long>(fit, blocks));
+    }
+    mv_votes_control_kernel<kRows, kShared, kThreads>
+        <<<blocks, kThreads, smem, s>>>(
+            static_cast<const short4*>(mvs),
+            static_cast<const int32_t*>(mv_counts), batch, m, gh, gw, y_min,
+            y_max, bound, shift, static_cast<int32_t*>(scratch), stride,
+            static_cast<int32_t*>(kept));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// C9's launch for the histogram's place and size.
+template <int kRows>
+int launch_votes_for(const void* mvs, const void* mv_counts, int batch,
+                     int m, int gh, int gw, int y_min, int y_max,
+                     long long bound, int shift, void* scratch,
+                     long long scratch_cells, void* kept, int device,
+                     cudaStream_t s) {
+    const int stride = votes_stride(gh, gw, y_min, y_max);
+    if (scratch != nullptr && stride > 0)
+        return launch_votes<kRows, false, kWideThreads>(
+            mvs, mv_counts, batch, m, gh, gw, y_min, y_max, bound, shift,
+            scratch, scratch_cells, kept, device, s);
+    if (static_cast<size_t>(stride) * 4 <= kNarrowHistBytes)
+        return launch_votes<kRows, true, kVotesThreads>(
+            mvs, mv_counts, batch, m, gh, gw, y_min, y_max, bound, shift,
+            nullptr, 0, kept, device, s);
+    return launch_votes<kRows, true, kWideThreads>(
+        mvs, mv_counts, batch, m, gh, gw, y_min, y_max, bound, shift,
+        nullptr, 0, kept, device, s);
+}
+
+// Whether the payload may be read a 16-byte unit (two MVs) at a time.
+bool in_pairs(const void* mvs, int m) {
+    return m % 2 == 0 && reinterpret_cast<uintptr_t>(mvs) % 16 == 0;
 }
 
 // --- C6, C7, C8: K4+K5's launch over all M slots ---
+
+constexpr int kMvThreads = 512;
 
 enum class Capacity { kSum, kSub, kLowBytes };  // C6, C7, C8
 
@@ -469,13 +770,58 @@ extern "C" int mvt_mv_stream_control(const void* mvs, const void* mv_counts,
     if (batch < 0 || m < 0) return static_cast<int>(cudaErrorInvalidValue);
     const mvt::DeviceGuard guard(device);
     if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
-    if (batch > 0)
-        mv_stream_control_kernel<<<batch, kMvThreads, 0,
-                                   static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const short4*>(mvs),
-            static_cast<const int32_t*>(mv_counts), m,
-            static_cast<int32_t*>(sums));
-    return static_cast<int>(cudaGetLastError());
+    if (batch == 0) return static_cast<int>(cudaGetLastError());
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return in_pairs(mvs, m)
+               ? launch_stream<2>(mvs, mv_counts, batch, m, sums, device, s)
+               : launch_stream<1>(mvs, mv_counts, batch, m, sums, device, s);
+}
+
+// The int32 cells of global scratch C9 needs, or -(CUDA error): 0 when a
+// CTA's histogram of rows [max(y_min, 0), min(y_max, gh)), with the tile's
+// scan, fits the shared memory one block of the current
+// device may opt in to (227 KB on the H100); else one histogram a CTA for
+// min(batch, 2 x SMs) CTAs.
+extern "C" long long mvt_mv_votes_scratch(int batch, int gh, int gw,
+                                          int y_min, int y_max) {
+    int dev = 0, optin = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(
+            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                     dev);
+    if (err != cudaSuccess) return -static_cast<long long>(err);
+    const int stride = votes_stride(gh, gw, y_min, y_max);
+    if (batch <= 0 || votes_smem(stride, true) <= static_cast<size_t>(optin))
+        return 0;
+    return static_cast<long long>(std::min(batch, 2 * sms)) * stride;
+}
+
+// C9 over mvs int16 [B, M, 4] (8-byte aligned) + counts int32 [B] -> sums
+// int32 [B] = the kept MVs of frame b, by K4+K5's keep rule at the int64
+// bound and shift; scratch == NULL keeps the histograms in shared memory,
+// else scratch holds scratch_cells int32 (mvt_mv_votes_scratch).
+extern "C" int mvt_mv_votes_control(const void* mvs, const void* mv_counts,
+                                    int batch, int m, int gh, int gw,
+                                    int y_min, int y_max, long long bound,
+                                    int shift, void* scratch,
+                                    long long scratch_cells, void* sums,
+                                    int device, void* stream) {
+    if (batch < 0 || m < 0 || gh < 0 || gw < 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const mvt::DeviceGuard guard(device);
+    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+    if (batch == 0) return static_cast<int>(cudaGetLastError());
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return in_pairs(mvs, m)
+               ? launch_votes_for<2>(mvs, mv_counts, batch, m, gh, gw, y_min,
+                                     y_max, bound, shift, scratch,
+                                     scratch_cells, sums, device, s)
+               : launch_votes_for<1>(mvs, mv_counts, batch, m, gh, gw, y_min,
+                                     y_max, bound, shift, scratch,
+                                     scratch_cells, sums, device, s);
 }
 
 // C6 (mode 0), C7 (mode 1) and C8 (mode 2) over mvs int16 [B, M, 4]

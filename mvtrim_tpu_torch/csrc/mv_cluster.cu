@@ -55,8 +55,13 @@
 
 #include "cluster_words.cuh"
 #include "launch.cuh"
+#include "mv_keep.cuh"
 
 namespace {
+
+using mvt::kept_cell;
+using mvt::window_lo;
+using mvt::window_rows;
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
@@ -76,16 +81,6 @@ __device__ __forceinline__ void zero_cells(int32_t* p, int n) {
     if (tid < n - tail) p[tail + tid] = 0;
 }
 
-// Rows of the vote window, inside the grid.
-__host__ __device__ __forceinline__ int window_lo(int y_min) {
-    return y_min > 0 ? y_min : 0;
-}
-__host__ __device__ __forceinline__ int window_rows(int gh, int y_min,
-                                                    int y_max) {
-    const int hi = y_max < gh ? y_max : gh;
-    return hi > window_lo(y_min) ? hi - window_lo(y_min) : 0;
-}
-
 // 32-bit words before the histogram in shared memory: the warp sums, then
 // the packed rows, padded to 16 bytes.
 __host__ __device__ __forceinline__ int words_before_hist(int rows, int gw) {
@@ -99,35 +94,13 @@ size_t shared_bytes(int rows, int gw, bool with_hist) {
     return words * sizeof(uint32_t);
 }
 
-// Whether K4+K5's rule keeps an MV, and its cell: row r of the window
-// [y_lo, y_hi) and column gx.
-__device__ __forceinline__ bool kept_cell(short4 mv, long long bound,
-                                          int shift, int gw, int y_lo,
-                                          int y_hi, int& r, int& gx) {
-    const int dst_x = mv.x, dst_y = mv.y;  // widened before the shift
-    const uint32_t dx = static_cast<uint32_t>(dst_x - mv.z);
-    const uint32_t dy = static_cast<uint32_t>(dst_y - mv.w);
-    const int mag = static_cast<int>(dx * dx + dy * dy);
-    gx = dst_x >> shift;
-    const int gy = dst_y >> shift;
-    r = gy - y_lo;
-    return mag >= bound && gx >= 0 && gx < gw && gy >= y_lo && gy < y_hi;
-}
-
-// The body's three instances, one kernel each.
+// The body's two instances, one kernel each.
 //   kProduct   K4+K5.
 //   kResident  C5, the compute control (the arithmetic ceiling of this
 //              launch): the frame index held at frame 0, so every CTA reads
 //              frame 0's count and MVs, which stay in the L2, and writes its
 //              own frame's outputs.
-//   kVotes     C9, the votes control (replaces mv_bench.py's noclu): the
-//              histogram zeroed and the votes scattered by atomicAdd exactly
-//              as K4+K5 does (eight loads in flight a thread), but no
-//              threshold bit, no word fill and no rule;
-//              counts[b] is the frame's kept-MV count (each kept MV adds one
-//              vote, so it is the sum of the votes), motion is not written.
-//              K4+K5 less C9 is the rule's share of its time.
-enum class Body { kProduct, kResident, kVotes };
+enum class Body { kProduct, kResident };
 
 template <Body kBody>
 __device__ __forceinline__ void mv_cluster_body(
@@ -154,64 +127,34 @@ __device__ __forceinline__ void mv_cluster_body(
         zero_cells(hist, cells);
         // the words of an all-zero histogram (bits past gw included, which
         // the rule's centre mask never reads)
-        if constexpr (kBody != Body::kVotes)
-            for (int i = tid; i < rows * gww; i += kThreads) words[i] = fill;
+        for (int i = tid; i < rows * gww; i += kThreads) words[i] = fill;
         __syncthreads();
 
         const int fb = kBody == Body::kResident ? 0 : b;  // the frame read
         const int count = mv_counts[fb];
         const int n = min(max(count, 0), m);
         const short4* f = mvs + static_cast<size_t>(fb) * m;
-        if constexpr (kBody == Body::kVotes) {
-            // K4+K5's unrolled loop below issues a thread's eight loads
-            // before their atomics; compiled alone, this one's loads wait
-            // behind the atomic before them (a memory latency an MV), so
-            // the eight are issued first here by hand
-            uint32_t kept = 0;
-            for (int k0 = tid; k0 < n; k0 += 8 * kThreads) {
-                short4 mv[8];
-#pragma unroll
-                for (int u = 0; u < 8; ++u) {
-                    const int k = k0 + u * kThreads;
-                    mv[u] = k < n ? __ldg(f + k) : make_short4(0, 0, 0, 0);
-                }
-#pragma unroll
-                for (int u = 0; u < 8; ++u) {
-                    int r, gx;
-                    if (k0 + u * kThreads < n &&
-                        kept_cell(mv[u], bound, shift, gw, y_lo, y_hi, r,
-                                  gx)) {
-                        atomicAdd(hist + r * gw + gx, 1);
-                        ++kept;
-                    }
-                }
-            }
-            // block_sum's barrier follows every thread's atomics
-            const uint32_t total = mvt::block_sum(kept, sums);
-            if (tid == 0) counts[b] = static_cast<int32_t>(total);
-        } else {
 #pragma unroll 8
-            for (int k = tid; k < n; k += kThreads) {
-                const short4 mv = __ldg(f + k);
-                int r, gx;
-                if (kept_cell(mv, bound, shift, gw, y_lo, y_hi, r, gx) &&
-                    atomicAdd(hist + r * gw + gx, 1) + 1 == thr)
-                    // the vote that lifts a cell to thr sets its bit: a
-                    // count passes each value below its total once, so the
-                    // bit ends set exactly when the cell's votes reach
-                    // thr >= 1
-                    atomicOr(words + r * gww + (gx >> 5), 1u << (gx & 31));
-            }
-            __syncthreads();
+        for (int k = tid; k < n; k += kThreads) {
+            const short4 mv = __ldg(f + k);
+            int r, gx;
+            if (kept_cell(mv, bound, shift, gw, y_lo, y_hi, r, gx) &&
+                atomicAdd(hist + r * gw + gx, 1) + 1 == thr)
+                // the vote that lifts a cell to thr sets its bit: a
+                // count passes each value below its total once, so the
+                // bit ends set exactly when the cell's votes reach
+                // thr >= 1
+                atomicOr(words + r * gww + (gx >> 5), 1u << (gx & 31));
+        }
+        __syncthreads();
 
-            uint32_t total = mvt::count_rows(words, y_lo, y_hi, gww, gw, y_lo,
-                                             y_hi, fill, tid, kThreads);
-            total = mvt::block_sum(total, sums);
-            if (tid == 0) {
-                counts[b] = static_cast<int32_t>(total);
-                motion[b] =
-                    static_cast<int>(total) >= need && count > 0 ? 1 : 0;
-            }
+        uint32_t total = mvt::count_rows(words, y_lo, y_hi, gww, gw, y_lo,
+                                         y_hi, fill, tid, kThreads);
+        total = mvt::block_sum(total, sums);
+        if (tid == 0) {
+            counts[b] = static_cast<int32_t>(total);
+            motion[b] =
+                static_cast<int>(total) >= need && count > 0 ? 1 : 0;
         }
         // the next frame's stores to the histogram, the words and the warp
         // sums each come after a barrier that follows this frame's reads
@@ -243,27 +186,11 @@ mv_cluster_resident_kernel(const short4* __restrict__ mvs,
                                      counts, motion);
 }
 
-// thr, need and motion unused.  Three CTAs an SM, K4+K5's occupancy (its
-// 40 registers a thread allow three): left to itself the votes body takes
-// 42, and registers go to a warp in 256s, so only two would fit.
-__global__ void __launch_bounds__(kThreads, 3)
-mv_votes_kernel(const short4* __restrict__ mvs,
-                const int32_t* __restrict__ mv_counts, int batch, int m,
-                int gh, int gw, int y_min, int y_max, long long bound, int thr,
-                int need, int shift, int32_t* __restrict__ scratch,
-                int32_t* __restrict__ counts, uint8_t* __restrict__ motion) {
-    mv_cluster_body<Body::kVotes>(mvs, mv_counts, batch, m, gh, gw, y_min,
-                                  y_max, bound, thr, need, shift, scratch,
-                                  counts, motion);
-}
-
-// The kernel of an instance (all three take the same arguments).
+// The kernel of an instance (both take the same arguments).
 template <Body kBody>
 auto kernel_of() {
     if constexpr (kBody == Body::kProduct) return mv_cluster_kernel;
-    else if constexpr (kBody == Body::kResident)
-        return mv_cluster_resident_kernel;
-    else return mv_votes_kernel;
+    else return mv_cluster_resident_kernel;
 }
 
 // Lets the kernel take `smem` bytes of dynamic shared memory on `device`,
@@ -377,17 +304,4 @@ extern "C" int mvt_mv_compute_control(const void* mvs, const void* mv_counts,
                                    y_max, bound, thr, need, shift, scratch,
                                    scratch_cells, counts, motion, device,
                                    stream);
-}
-
-// The votes control (C9): the same launch and scratch over mvs and
-// mv_counts, sums[b] = the kept-MV count of frame b (int32 [B]).
-extern "C" int mvt_mv_votes_control(const void* mvs, const void* mv_counts,
-                                    int batch, int m, int gh, int gw,
-                                    int y_min, int y_max, long long bound,
-                                    int shift, void* scratch,
-                                    long long scratch_cells, void* sums,
-                                    int device, void* stream) {
-    return launch<Body::kVotes>(mvs, mv_counts, batch, m, gh, gw, y_min,
-                                y_max, bound, 0, 0, shift, scratch,
-                                scratch_cells, sums, nullptr, device, stream);
 }

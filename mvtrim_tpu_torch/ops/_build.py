@@ -87,11 +87,14 @@ SIGNATURES = {
     # scratch_cells, sums, device, stream
     "mvt_mv_votes_control": [_P, _P] + [_I] * 6 + [_L, _I]
                             + [_P, _L, _P, _I, _P],
+    # batch, gh, gw, y_min, y_max
+    "mvt_mv_votes_scratch": [_I] * 5,
     # mvs, batch, m, gh_p, gw_p, sums, device, stream
     "mvt_mv_matrix_control": [_P] + [_I] * 4 + [_P, _I, _P],
 }
 # entry points that return long long, not int
-RESTYPES = {"mvt_mv_cluster_scratch": ctypes.c_longlong}
+RESTYPES = {"mvt_mv_cluster_scratch": ctypes.c_longlong,
+            "mvt_mv_votes_scratch": ctypes.c_longlong}
 
 _lock = threading.Lock()
 _lib = None

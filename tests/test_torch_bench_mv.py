@@ -12,10 +12,18 @@ against ``benchmarks/mv_bench.py``'s TPU controls.
   to int32 at an 8K grid.
 * The wrappers' checks, the audit's tensor-rate bound and gate, and the mv
   family's cells on the CPU.
+* The counts that stress C3's and C9's launch (a frame to a CTA of a
+  persistent grid): a batch all at zero, one frame at M among zeros,
+  negative counts, counts above M;
+  C9's plain version against ``noclu``, C3's against ``ctrl`` at full
+  counts (the only counts where they agree) and against a NumPy statement
+  of its formula at the others.
 * ``cuda``-marked: each kernel against its plain version at 1080p and 4K,
-  sparse and full, C9 with the global histogram (7680x4320), and C10 at
-  all-ones parity and M = 16,384 (``python -m pytest -m cuda
-  tests/test_torch_bench_mv.py`` on a card).
+  sparse and full, C9 with the global histogram (7680x4320), C3 and C9 at
+  the launch's edge counts (B = 1 and 3, an odd M, a base 8 bytes off,
+  more frames than the grid's CTAs), and C10 at all-ones parity and M =
+  16,384 (``python -m pytest -m cuda tests/test_torch_bench_mv.py`` on a
+  card).
 
 Every comparison is exact: the functions are integer.
 """
@@ -122,6 +130,118 @@ def test_control_matches_the_jax_variant(mv_bench, variant, m, dims):
     np.testing.assert_array_equal(plain.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), want)
     assert got.dtype == torch.int32 and tuple(got.shape) == (b,)
+
+
+# --- C3's and C9's edge counts, against the TPU variants ---
+
+EDGES = ("all zero", "one frame at M among zeros", "negative counts",
+            "counts above M")
+
+
+def edge_counts(pattern: str, m: int, rng, b: int = 5) -> np.ndarray:
+    """b frames' counts at one of the EDGES patterns (or "sparse",
+    "full"), the rest log-uniform in 1..M."""
+    counts = np.exp(rng.uniform(0, np.log(m), size=b)).astype(np.int32)
+    if pattern == "all zero":
+        counts[:] = 0
+    elif pattern == "one frame at M among zeros":
+        counts[:] = 0
+        counts[b // 2] = m
+    elif pattern == "negative counts":
+        counts[0::5] = -7
+        counts[3::5] = -2 ** 31
+    elif pattern == "counts above M":
+        counts[1::5] = m + 1
+        counts[4::5] = 2 ** 31 - 1
+    elif pattern == "full":
+        counts[:] = m
+    else:
+        assert pattern == "sparse"
+    return counts
+
+
+def jax_variant(mv_bench, variant, fields, counts, width, height):
+    b, m = fields[0].shape
+    jgeom = JaxGeometry.build(width, height, JaxConfig())
+    with pltpu.force_tpu_interpret_mode():
+        run = mv_bench.build_variant(variant, jgeom, JaxConfig(), k=1, b=b,
+                                     m=m, iters=1, fps=1)
+        return np.asarray(run(*(f.reshape(b, 1, m) for f in fields),
+                              fields[0].reshape(b, m, 1), counts))
+
+
+@pytest.mark.parametrize("dims", DIMS)
+@pytest.mark.parametrize("m", [256, 1000])
+@pytest.mark.parametrize("pattern", EDGES)
+def test_votes_control_matches_noclu_at_edge_counts(mv_bench, pattern, m,
+                                                        dims):
+    width, height = dims
+    rng = np.random.default_rng(m + width + len(pattern))
+    counts = edge_counts(pattern, m, rng)
+    fields = seeded_mvs(rng, len(counts), m, width, height)
+    want = jax_variant(mv_bench, "noclu", fields, counts, width, height)
+    got, plain = port_variant("noclu", as_payload(fields),
+                              torch.from_numpy(counts),
+                              GridGeometry.build(width, height, Config()),
+                              None)
+    np.testing.assert_array_equal(plain.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if pattern in ("all zero", "negative counts"):
+        assert (want[counts <= 0] == 0).all()
+
+
+@pytest.mark.parametrize("dims", DIMS)
+@pytest.mark.parametrize("m", [256, 1000])
+def test_stream_control_matches_ctrl_at_full_counts(mv_bench, m, dims):
+    """C3 reads the rows below the count; at full counts that is every
+    slot, which mv_bench.py's ctrl reads."""
+    width, height = dims
+    rng = np.random.default_rng(m + width)
+    counts = edge_counts("full", m, rng)
+    fields = seeded_mvs(rng, len(counts), m, width, height)
+    want = jax_variant(mv_bench, "ctrl", fields, counts, width, height)
+    mvs, c = as_payload(fields), torch.from_numpy(counts)
+    np.testing.assert_array_equal(
+        controls.mv_stream_control_plain(mvs, c).numpy(), want)
+    np.testing.assert_array_equal(controls.mv_stream_control(mvs, c).numpy(),
+                                  want)
+
+
+def numpy_stream(fields, counts) -> np.ndarray:
+    """count[b] + the four fields' sum over k < clamp(count[b], 0, M),
+    wrapped to int32."""
+    m = fields[0].shape[1]
+    live = np.arange(m)[None, :] < np.clip(counts, 0, m)[:, None].astype(
+        np.int64)
+    total = sum((f.astype(np.int64) * live).sum(axis=1) for f in fields)
+    total = total + counts.astype(np.int64)
+    return ((total + 2 ** 31) % 2 ** 32 - 2 ** 31).astype(np.int32)
+
+
+@pytest.mark.parametrize("b", [1, 3, 5])
+@pytest.mark.parametrize("pattern", EDGES + ("sparse", "full"))
+def test_stream_control_plain_is_its_formula_at_edge_counts(pattern, b):
+    rng = np.random.default_rng(b + len(pattern))
+    m = 300
+    counts = edge_counts(pattern, m, rng)[:b]
+    fields = seeded_mvs(rng, b, m, 1920, 1080)
+    mvs, c = as_payload(fields), torch.from_numpy(counts)
+    want = numpy_stream(fields, counts)
+    np.testing.assert_array_equal(
+        controls.mv_stream_control_plain(mvs, c).numpy(), want)
+    np.testing.assert_array_equal(controls.mv_stream_control(mvs, c).numpy(),
+                                  want)
+
+
+def test_stream_control_wraps_to_int32():
+    m = 40000
+    mvs = torch.full((2, m, 4), 32767, dtype=torch.int16)
+    counts = torch.tensor([m, 2 ** 31 - 1], dtype=torch.int32)
+    total = np.array([4 * m * 32767 + m, 4 * m * 32767 + 2 ** 31 - 1],
+                     np.int64)
+    want = (total + 2 ** 31) % 2 ** 32 - 2 ** 31
+    np.testing.assert_array_equal(
+        controls.mv_stream_control(mvs, counts).numpy(), want)
 
 
 # --- against NumPy statements ---
@@ -438,12 +558,54 @@ def test_cuda_votes_control_with_the_global_histogram():
     cfg = Config()
     geom = GridGeometry.build(7680, 4320, cfg)
     mvs, counts = card_case((7680, 4320), 8192, 64, False)
-    assert mv_ops.uses_global_histogram(geom, mvs.device)
+    assert controls.votes_scratch_cells(64, geom, mvs.device.index or 0) > 0
     bound = mv_ops.threshold_bound(cfg.mv_threshold_sq)
+    counts[5] = 8192
     check_exact(controls.mv_votes_control(mvs, counts, geom, bound,
                                           cfg.block_shift),
                 controls.mv_votes_control_plain(mvs, counts, geom, bound,
                                                 cfg.block_shift))
+
+
+def offset8(t: torch.Tensor) -> torch.Tensor:
+    """t's values at a base 8 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() * 2 + 16, dtype=torch.uint8, device=t.device)
+    start = (16 - buf.data_ptr() % 16) % 16 + 8
+    return buf[start:start + t.numel() * 2].view(torch.int16).view(
+        t.shape).copy_(t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,m,b", [((1920, 1080), 8192, 2048),
+                                      ((3840, 2160), 16384, 256),
+                                      ((1920, 1080), 8192, 1),
+                                      ((1920, 1080), 8192, 3),
+                                      ((1920, 1080), 8191, 33),
+                                      ((1920, 1080), 512, 5000),
+                                      ((7680, 4320), 8192, 16)])
+@pytest.mark.parametrize("pattern", EDGES + ("sparse", "full"))
+def test_cuda_ragged_controls_at_edge_counts(dims, m, b, pattern):
+    """C3 and C9 on their launch, exact, one launch a call: fewer frames
+    than CTAs, an odd M and a base 8 bytes off (one MV a
+    load), more frames than the grid's CTAs, 8K's global histogram."""
+    need_card()
+    cfg = Config()
+    geom = GridGeometry.build(*dims, cfg)
+    rng = np.random.default_rng(m + b + len(pattern))
+    counts = edge_counts(pattern, m, rng, b)
+    mvs = as_payload(seeded_mvs(rng, b, m, *dims)).cuda()
+    c = torch.from_numpy(counts).cuda()
+    bound = mv_ops.threshold_bound(cfg.mv_threshold_sq)
+    bases = [mvs] + ([offset8(mvs)] if m % 2 == 0 else [])
+    for base in bases:
+        check_exact(counted(controls.mv_stream_control,
+                            lambda: controls.mv_stream_control(base, c)),
+                    controls.mv_stream_control_plain(base, c))
+        check_exact(counted(controls.mv_votes_control,
+                            lambda: controls.mv_votes_control(
+                                base, c, geom, bound, cfg.block_shift)),
+                    controls.mv_votes_control_plain(base, c, geom, bound,
+                                                    cfg.block_shift))
 
 
 @pytest.mark.cuda

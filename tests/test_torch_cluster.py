@@ -222,7 +222,7 @@ class TestWrapper:
             "mvt_sad_stream_control", "mvt_mv_stream_control",
             "mvt_sad_compute_control", "mvt_mv_compute_control",
             "mvt_mv_capacity_control", "mvt_mv_votes_control",
-            "mvt_mv_matrix_control"}
+            "mvt_mv_votes_scratch", "mvt_mv_matrix_control"}
         for src in _build.sources():
             with open(src) as f:
                 text = f.read()
