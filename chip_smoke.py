@@ -39,10 +39,10 @@ on the card's backend.
 
 Phase 5 times each kernel against its plain version and its bound: K1 at
 1080p B = 750 and 2048 and 4K B = 2048 at both row pitches (the bits as the
-scanner packs them, the words payload) beside C1, the stream control of
-its launch, where a K1 call's host time goes step by step, and the
-feeder's dispatch of one 750-frame chunk.  ``--times-only`` runs phases 1,
-2 and 5.
+scanner packs them, the words payload) beside C1, the same rows streamed
+on a launch of its own, where a K1 call's host time goes step by step,
+and the feeder's dispatch of one 750-frame chunk.  ``--times-only`` runs
+phases 1, 2 and 5.
 
 Phase 6 holds the bench's controls C1-C10 (``mvtrim_tpu_torch/bench/
 controls.py``) to their plain versions on the card, exactly, times them
@@ -50,20 +50,27 @@ by CUDA graph, and runs ``python -m mvtrim_tpu_torch.bench --quick``'s
 main in this process: its last line must be the headline JSON and every
 cell must pass its audit.  Its launches, counted from 0 just before it
 (a graph's capture counts each launch once), must include every kernel
-and control.  C1 and C2 are the stream controls of K1's and K6's
-launches, C4 and C5 the compute controls of K6 and K4+K5, C6-C8 K4+K5's
-launch over all M slots (``mv_bench.py``'s ``ctrl``, ``ctrlsub``,
-``ctrlmm``) and C10 the one-hot vote product's shapes on the tensor cores
-(``mmctrl``).  C3 (``ctrl`` by the count) and C9 (``noclu``: K4+K5's vote
-scatter without the cluster rule) run on a launch of their own (a frame
-to a small CTA, a persistent grid taking the frames in turn), and are
-also held at the counts that stress it (``RAGGED_EDGES``: all zero, one
-frame at M among zeros, B = 1 and 3, counts above M and negative, an odd
-M, more frames than the grid's CTAs, 8K's global histogram).
-``--times-only`` also times C3, C9 and K4+K5 at ``RAGGED_TIMING``.
-Phase 2 fails unless the compiler's report names every kernel and
-``cuobjdump -sass`` finds IMMA (integer tensor-core) instructions in
-C10's kernel.
+and control.  C2 is the stream control of K6's launch, C4 the compute
+control of K6, C6-C8 K4+K5's launch over all M slots (``mv_bench.py``'s
+``ctrl``, ``ctrlsub``, ``ctrlmm``) and C10 the one-hot vote product's
+shapes on the tensor cores (``mmctrl``).  C1 (K1's rows, a warp a frame,
+every load in flight at once) runs on a launch of its own and is also
+held at B = 1 and 3, at batches that leave a CTA short of frames, at 4K
+and at 8K's frames of 259,200 B, both pitches, aligned and at a base 1 B
+(bits) or 4 B (words) off.  C3 (``ctrl`` by the count), C9 (``noclu``:
+K4+K5's vote scatter without the cluster rule) and C5 (K4+K5's whole
+rule over frame 0, held for every frame) run on a launch of their own (a
+frame to a small CTA, a persistent grid taking the frames in turn), and
+are also held at the counts that stress it (``RAGGED_EDGES``: all zero,
+one frame at M among zeros, B = 1 and 3, counts above M and negative, an
+odd M and a base 8 bytes off, more frames than the grid's CTAs, 8K's
+global histogram; C5 at a held count of 0, 1, M, above M and negative,
+and at VECTORS_NEEDED 0 and above any cell's votes); each call counts
+one launch.  ``--times-only`` also times C1 and C5 at this phase's shapes
+(C1 beside ``torch.sum`` of the same bytes) and C3, C5, C9 and K4+K5 at
+``RAGGED_TIMING``.  Phase 2 fails unless the compiler's report names
+every kernel and ``cuobjdump -sass`` finds IMMA (integer tensor-core)
+instructions in C10's kernel.
 
 Phase 7 is the deployment.  7a runs ``python -m mvtrim_tpu_torch.ops._build``
 into a fresh MVT_COMPILE_CACHE and then, in a process that cannot reach
@@ -162,7 +169,7 @@ KERNELS = {
                             "mvtrim_tpu_torch/csrc/sad_block.cu",
                             "benchmarks/sad_bench.py:491,520"),
     "mv_compute_control": (controls.mv_compute_control,
-                           "mvtrim_tpu_torch/csrc/mv_cluster.cu",
+                           "mvtrim_tpu_torch/csrc/bench_controls.cu",
                            "benchmarks/mv_bench.py:469"),
     # C6-C10, mv_bench.py's ctrl, ctrlsub, ctrlmm, noclu and mmctrl
     "mv_capacity_control": (controls.mv_capacity_control,
@@ -185,10 +192,9 @@ KERNELS = {
 # (names carry the anonymous namespace), and C10's, which must hold IMMA
 KERNEL_FUNCTIONS = ("word_cluster_kernel", "cluster_map_kernel",
                     "sad_block_kernel", "sad_block_resident_kernel",
-                    "mv_cluster_kernel",
-                    "mv_cluster_resident_kernel",
-                    "word_stream_control_kernel",
+                    "mv_cluster_kernel", "word_bit0_control_kernel",
                     "sad_stream_control_kernel", "mv_stream_control_kernel",
+                    "mv_compute_control_kernel",
                     "mv_capacity_control_kernel", "mv_votes_control_kernel",
                     "mv_matrix_control_kernel")
 TENSOR_KERNEL = "mv_matrix_control_kernel"
@@ -1960,13 +1966,13 @@ def phase_timing_words(rng, seed: int, card: str) -> dict:
             dev_us, dev_text = audit.profiler_time(kernel, batches,
                                                    "word_cluster_kernel")
             # one batch over and over, as the pipeline's kernel finds its
-            # batch in the L2 right after the H2D copy; and C1, the stream
-            # control of K1's launch, over the same batches
+            # batch in the L2 right after the H2D copy; and C1, the same
+            # rows streamed on a launch of its own, over the same batches
             warm_us, warm_text = audit.profiler_time(kernel, batches[:1],
                                                      "word_cluster_kernel")
             ctrl_us, ctrl_text = audit.profiler_time(
                 lambda t, geom=geom: controls.word_stream_control(t, geom),
-                batches, "word_stream_control_kernel")
+                batches, "word_bit0_control_kernel")
             host_us = audit.host_time(kernel, batches)
             bound = word_bound(geom, b, pitch)
             key = f"{label} B={b} {name}"
@@ -1976,8 +1982,8 @@ def phase_timing_words(rng, seed: int, card: str) -> dict:
             log(f"word_cluster {key} (pitch {pitch} B, {n} batches "
                 f"rotated, {bound['nbytes'] / 1e6:.3f} MB the function "
                 f"moves) on {card}: device time {dev_text}; one batch "
-                f"(L2-warm): {warm_text}; C1, the stream control of its "
-                f"launch, on the same batches: {ctrl_text}; event "
+                f"(L2-warm): {warm_text}; C1, the stream of the same rows, "
+                f"on the same batches: {ctrl_text}; event "
                 f"{k_ms * 1e3:.3f} us/launch (runs {k_runs} ms); host "
                 f"enqueue {host_us:.3f} us a call; plain "
                 f"{p_ms * 1e3:.3f} us (runs {p_runs} ms); bound "
@@ -2412,16 +2418,27 @@ def phase_timing(rng, seed: int, card: str) -> dict:
 
 # --- phase 6 ---
 
+def one_launch(wrapper, call):
+    """call()'s result; raises unless it counted one launch on wrapper."""
+    before = wrapper.launches
+    out = call()
+    if wrapper.launches != before + 1:
+        raise AssertionError(f"{wrapper.__name__} counted "
+                             f"{wrapper.launches - before} launches")
+    return out
+
+
 def phase_correctness_controls(seed: int) -> dict:
     """C1-C10 vs their plain versions on the card, on the same tensors,
     exact: C1 at both pitches (the bits' 15 B at 1080p), aligned and at a
-    base 1 B (bits) or 4 B (words) off, and on frames past a block's shared
-    memory; C2 and C4 on SAD windows, a base 1 B off too (one-byte loads);
-    C3, C5 and C6-C10 at sparse and full counts (counts 0 and above M
-    among them), C5 and C9 also with the global histogram, C10 also at
-    all-ones parity and M = 16,384 (every cell 16,384: integer, not TF32),
-    C3 and C9 also at RAGGED_EDGES.  Returns name -> max |kernel -
-    plain|."""
+    base 1 B (bits) or 4 B (words) off, at B = 1, 3, 750, 777 and 2048
+    (B = 750 and 777 leave a CTA short of frames), at 4K and on 8K's
+    frames past a block's shared memory, one launch a call; C2 and C4 on
+    SAD windows, a base 1 B off too (one-byte loads); C3, C5 and C6-C10 at
+    sparse and full counts (counts 0 and above M among them), C5 and C9
+    also with the global histogram, C10 also at all-ones parity and M =
+    16,384 (every cell 16,384: integer, not TF32), C3, C5 and C9 also at
+    RAGGED_EDGES.  Returns name -> max |kernel - plain|."""
     gen = torch.Generator(device="cuda").manual_seed(seed + 8)
     worst = dict.fromkeys(CONTROLS, 0)
 
@@ -2435,7 +2452,7 @@ def phase_correctness_controls(seed: int) -> dict:
 
     width, height, vm, shift, large_b = WORD_LARGE
     for w, h, cfg, batches in (
-            (1920, 1080, Config(), (750, 2048)),
+            (1920, 1080, Config(), (1, 3, 750, 2048)),
             (3840, 2160, Config(), (777,)),
             (200, 144, Config(), (777,)),
             (width, height, Config(vertical_mask=vm, block_shift=shift,
@@ -2452,12 +2469,14 @@ def phase_correctness_controls(seed: int) -> dict:
                                      "offset")):
                     plain = controls.word_stream_control_plain(
                         controls.word_rows(base, geom), geom)
-                    check("word_stream_control",
-                          controls.word_stream_control(base, geom), plain,
-                          f"{w}x{h} B={b} {name} {label}")
+                    check("word_stream_control", one_launch(
+                        controls.word_stream_control,
+                        lambda: controls.word_stream_control(base, geom)),
+                        plain, f"{w}x{h} B={b} {name} {label}")
         log(f"word_stream_control {w}x{h} BLOCK_SHIFT={cfg.block_shift} "
             f"B={batches}: kernel == plain at pitches {gwb} B (bits) and "
-            f"{4 * ((geom.gw + 31) // 32)} B (words), aligned and offset")
+            f"{4 * ((geom.gw + 31) // 32)} B (words), aligned and offset, "
+            f"one launch a call")
 
     bs = Config().block_size
     for w, h, b in ((1920, 1080, SAD_WINDOW), (3840, 2160, SAD_WINDOW),
@@ -2589,24 +2608,30 @@ RAGGED_EDGES = (
 )
 
 
+def held_cases(m: int, thr: int) -> tuple:
+    """C5's edges on one payload: (label, frame 0's count, VECTORS_NEEDED):
+    a held count of 0, 1, M, above M and negative at ``thr``, and at M with
+    VECTORS_NEEDED 0 (every row's fill word all ones) and above any cell's
+    votes (no bit ever set)."""
+    return (("held count 0", 0, thr), ("held count 1", 1, thr),
+            ("held count M", m, thr), ("held count above M", m + 1, thr),
+            ("held count negative", -7, thr),
+            ("held count M, VECTORS_NEEDED 0", m, 0),
+            ("held count M, VECTORS_NEEDED above the votes", m, m + 1))
+
+
 def check_ragged_edges(check, gen) -> None:
-    """C3 and C9 vs their plain versions, exact, at RAGGED_EDGES: all-zero
-    counts, one frame at M among zeros (the batch's work in one frame),
-    B = 1 and 3 (fewer frames than CTAs), counts above M, negative counts,
-    sparse and full at 1080p and 4K, an odd M and a base 8 bytes off a
-    16-byte boundary (one MV a load), more frames than the grid's CTAs,
-    and 8K, whose histogram takes C9's global scratch.  Each call must
+    """C3, C9 and C5 vs their plain versions, exact, at RAGGED_EDGES:
+    all-zero counts, one frame at M among zeros (the batch's work in one
+    frame), B = 1 and 3 (fewer frames than CTAs), counts above M, negative
+    counts, sparse and full at 1080p and 4K, an odd M and a base 8 bytes
+    off a 16-byte boundary (one MV a load), more frames than the grid's
+    CTAs, and 8K, whose histogram takes C9's and C5's global scratch; C5
+    at each payload's ``held_cases``, counts and motion.  Each call must
     count one launch on its wrapper."""
     cfg = Config()
     bound = mv_ops.threshold_bound(cfg.mv_threshold_sq)
-
-    def counted_call(wrapper, call):
-        before = wrapper.launches
-        out = call()
-        if wrapper.launches != before + 1:
-            raise AssertionError(f"{wrapper.__name__} counted "
-                                 f"{wrapper.launches - before} launches")
-        return out
+    need = oracle.effective_clusters_needed(cfg.clusters_needed)
 
     for w, h, m, b, labels in RAGGED_EDGES:
         geom = GridGeometry.build(w, h, cfg)
@@ -2616,24 +2641,43 @@ def check_ragged_edges(check, gen) -> None:
         if m % 2 == 0 and b <= 2048:
             bases.append((offset_copy(mvs, 8), "8 bytes off"))
         glob = controls.votes_scratch_cells(b, geom, 0) > 0
-        if glob != (w == 7680):
-            raise AssertionError(f"C9 at {w}x{h}: global histogram {glob}")
+        if glob != (w == 7680) or glob != mv_ops.uses_global_histogram(
+                geom, mvs.device):
+            raise AssertionError(f"C9, C5 at {w}x{h}: global histogram "
+                                 f"{glob}")
         for label in labels or tuple(cases):
             counts = cases[label]
             for base, where in bases:
                 text = f"{w}x{h} M={m} B={b} {label}, base {where}"
-                check("mv_stream_control", counted_call(
+                check("mv_stream_control", one_launch(
                     controls.mv_stream_control,
                     lambda: controls.mv_stream_control(base, counts)),
                     controls.mv_stream_control_plain(base, counts), text)
-                check("mv_votes_control", counted_call(
+                check("mv_votes_control", one_launch(
                     controls.mv_votes_control,
                     lambda: controls.mv_votes_control(
                         base, counts, geom, bound, cfg.block_shift)),
                     controls.mv_votes_control_plain(
                         base, counts, geom, bound, cfg.block_shift), text)
+        counts = cases["sparse"].clone()
+        for label, held, vn in held_cases(m, cfg.vectors_needed):
+            counts[0] = held
+            args = (geom, bound, vn, cfg.clusters_needed, cfg.block_shift)
+            for base, where in bases:
+                text = f"{w}x{h} M={m} B={b} {label}, base {where}"
+                got, motion = one_launch(
+                    controls.mv_compute_control,
+                    lambda: controls.mv_compute_control(base, counts, *args))
+                plain, _ = controls.mv_compute_control_plain(base, counts,
+                                                             *args)
+                check("mv_compute_control", got, plain, text)
+                if not torch.equal(motion, (plain >= need) & (held > 0)):
+                    raise AssertionError(f"mv_compute_control motion at "
+                                         f"{text}")
         log(f"mv_stream_control, mv_votes_control {w}x{h} M={m} B={b} "
-            f"({', '.join(labels or tuple(cases))}; "
+            f"({', '.join(labels or tuple(cases))}), mv_compute_control "
+            f"(held counts 0, 1, M, above M, negative; VECTORS_NEEDED "
+            f"{cfg.vectors_needed}, 0 and {m + 1}); "
             f"{'global' if glob else 'shared-memory'} histogram; "
             f"{len(bases)} bases): kernel == plain, one launch a call")
         del mvs, bases
@@ -2670,23 +2714,9 @@ def phase_timing_controls(seed: int, card: str) -> dict:
     (the count add excluded)."""
     cfg = Config()
     gen = torch.Generator(device="cuda").manual_seed(seed + 9)
-    out = {}
+    out = {"word_stream_control": time_word_control(gen, card)}
     geom = GridGeometry.build(1920, 1080, cfg)
-    b, gwb = 2048, (geom.gw + 7) // 8
-    k = math.ceil(audit.ROTATED_BYTES / (b * geom.gh * gwb))
-    bits = [torch.randint(0, 256, (b, geom.gh, gwb), dtype=torch.uint8,
-                          device="cuda", generator=gen) for _ in range(k)]
-
-    def c1_plain(t):
-        return controls.word_stream_control_plain(t, geom)
-
-    out["word_stream_control"] = _control_time(
-        "word_stream_control 1080p B=2048 bits",
-        lambda t: controls.word_stream_control(t, geom), c1_plain, bits,
-        [int(c1_plain(t).sum()) for t in bits], b * (geom.gh * gwb + 4),
-        b * geom.gh * ((geom.gw + 31) // 32) * 2, card)
-    del bits
-
+    b = 2048
     bs, h, w = cfg.block_size, 1080, 1920
     wins = [torch.randint(0, 256, (1 + SAD_WINDOW, h, w), dtype=torch.uint8,
                           device="cuda", generator=gen) for _ in range(2)]
@@ -2733,6 +2763,37 @@ def phase_timing_controls(seed: int, card: str) -> dict:
     out.update(time_new_mv_controls(sets, geom, rows, card))
     del sets
     torch.cuda.empty_cache()
+    return out
+
+
+def time_word_control(gen, card: str) -> dict:
+    """C1 on the bits payload at 1080p B = 2048 over buffers rotated past
+    the L2, and its library time: ``torch.sum`` of the same bytes in int32,
+    by CUDA graph as C1 (the same bytes, not the function; the port never
+    calls it)."""
+    geom = GridGeometry.build(1920, 1080, Config())
+    b, gwb = 2048, (geom.gw + 7) // 8
+    k = math.ceil(audit.ROTATED_BYTES / (b * geom.gh * gwb))
+    bits = [torch.randint(0, 256, (b, geom.gh, gwb), dtype=torch.uint8,
+                          device="cuda", generator=gen) for _ in range(k)]
+
+    def c1_plain(t):
+        return controls.word_stream_control_plain(t, geom)
+
+    out = _control_time(
+        "word_stream_control 1080p B=2048 bits",
+        lambda t: controls.word_stream_control(t, geom), c1_plain, bits,
+        [int(c1_plain(t).sum()) for t in bits], b * (geom.gh * gwb + 4),
+        b * geom.gh * ((geom.gw + 31) // 32) * 2, card)
+    lib = audit.graph_time(
+        lambda t: torch.sum(t, dim=(1, 2), dtype=torch.int32), bits,
+        max(64, len(bits)), [int(t.sum(dtype=torch.int64)) for t in bits], 3)
+    if not lib["checksum_ok"]:
+        raise AssertionError("torch.sum of C1's bytes: checksum")
+    out["library_ms"] = sorted(lib["runs_us"])[1] * 1e-3
+    log(f"torch.sum(rows, dim=(1, 2), dtype=torch.int32) 1080p B={b} bits "
+        f"on {card}: {lib['runs_us']} us a call (CUDA graph; C1's bytes, "
+        f"not its function)")
     return out
 
 
@@ -2787,8 +2848,8 @@ def time_new_mv_controls(sets, geom: GridGeometry, rows: float,
     return out
 
 
-# (label, (width, height), M, counts): where --times-only times C3, C9
-# and K4+K5 by CUDA graph: phase 6's shape (counts log-uniform in 1..M)
+# (label, (width, height), M, counts): where --times-only times C3, C5,
+# C9 and K4+K5 by CUDA graph: phase 6's shape (counts log-uniform in 1..M)
 # and the bench's mv cells (bench/mv.py: log-uniform in 64..2048, full)
 RAGGED_TIMING = (("1080p M=8192 1..M", (1920, 1080), 8192, "1..M"),
                  ("1080p M=8192 sparse", (1920, 1080), 8192, "sparse"),
@@ -2807,10 +2868,10 @@ def ragged_counts(gen, b: int, m: int, mode: str) -> torch.Tensor:
 
 
 def time_ragged(seed: int, card: str) -> dict:
-    """C3, C9 and K4+K5 at RAGGED_TIMING, B = 2048, each by CUDA graph (64
-    launches over buffers rotated past the L2, three replays), checksummed
-    against the plain versions: label -> name -> the replays' µs a
-    launch, and C3's and C9's bound."""
+    """C3, C9, C5 and K4+K5 at RAGGED_TIMING, B = 2048, each by CUDA graph
+    (64 launches over buffers rotated past the L2, three replays),
+    checksummed against the plain versions: label -> name -> the replays'
+    µs a launch, C3's and C9's bound and C5's."""
     cfg = Config()
     bnd = mv_ops.threshold_bound(cfg.mv_threshold_sq)
     shift = cfg.block_shift
@@ -2825,6 +2886,8 @@ def time_ragged(seed: int, card: str) -> dict:
             sets.append((device_mvs(gen, counts, m, w, h), counts))
             held += int(counts.sum()) * 8
         rows = sum(int(c.sum()) for _, c in sets) / len(sets)
+        first = sum(int(c[0]) for _, c in sets) / len(sets)
+        args = (geom, bnd, cfg.vectors_needed, cfg.clusters_needed, shift)
         pairs = {
             "mv_stream_control": (
                 lambda fc: controls.mv_stream_control(*fc),
@@ -2834,6 +2897,10 @@ def time_ragged(seed: int, card: str) -> dict:
                                                      shift),
                 lambda fc: controls.mv_votes_control_plain(
                     fc[0], fc[1], geom, bnd, shift)),
+            "mv_compute_control": (
+                lambda fc: controls.mv_compute_control(*fc, *args)[0],
+                lambda fc: controls.mv_compute_control_plain(*fc,
+                                                             *args)[0]),
             "mv_cluster_counts": (
                 lambda fc: mv_ops.mv_cluster_op(
                     fc[0], fc[1], geom, bnd, cfg.vectors_needed,
@@ -2849,12 +2916,18 @@ def time_ragged(seed: int, card: str) -> dict:
             res[name] = t["runs_us"]
         bound = least_time(rows * 8 + b * 8, rows * 12)
         res["bound_us"] = bound["bound_ms"] * 1e3
-        log(f"C3, C9, K4+K5 {label} B={b} ({rows / b:.1f} MVs a "
-            f"frame, {len(sets)} buffers) on {card}: C3 "
-            f"{res['mv_stream_control']} us, C9 {res['mv_votes_control']} "
-            f"us, K4+K5 {res['mv_cluster_counts']} us a launch (CUDA "
-            f"graph); C3/C9 bound {res['bound_us']:.3f} us by "
-            f"{bound['bound_by']}")
+        # C5's, as phase 6 counts it
+        c5 = least_time(first * 8 + b * 9,
+                        b * (first * 12 + centre_cells(geom) * 8))
+        res["c5_bound_us"] = c5["bound_ms"] * 1e3
+        log(f"C3, C9, C5, K4+K5 {label} B={b} ({rows / b:.1f} MVs a "
+            f"frame, frame 0 {first:.1f}, {len(sets)} buffers) on {card}: "
+            f"C3 {res['mv_stream_control']} us, C9 "
+            f"{res['mv_votes_control']} us, C5 "
+            f"{res['mv_compute_control']} us, K4+K5 "
+            f"{res['mv_cluster_counts']} us a launch (CUDA graph); C3/C9 "
+            f"bound {res['bound_us']:.3f} us by {bound['bound_by']}, C5 "
+            f"{res['c5_bound_us']:.3f} us by {c5['bound_by']}")
         out[label] = res
         del sets
         torch.cuda.empty_cache()
@@ -3384,8 +3457,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--times-only", action="store_true",
-                    help="build, then time the kernels (phase 5) and C3, "
-                         "C9 and K4+K5 at RAGGED_TIMING, and stop "
+                    help="build, then time the kernels (phase 5), C1 at "
+                         "phase 6's shape and C3, C5, C9 and K4+K5 at "
+                         "RAGGED_TIMING, and stop "
                          "printing their times as the last line; copied "
                          "into the root of another checkout, times that "
                          "checkout's kernels on the same card")
@@ -3400,11 +3474,16 @@ def main() -> int:
     phase_build()
     if args.times_only:
         times = phase_timing(rng, args.seed, card)
+        c1 = time_word_control(
+            torch.Generator(device="cuda").manual_seed(args.seed + 9), card)
         ragged = time_ragged(args.seed, card)
         cells = times["word_cluster_counts"]["cells"]
         print(json.dumps({
             "times_us": {name: round(t["ms"] * 1e3, 3)
                          for name, t in times.items()},
+            "c1_us": {"graph": round(c1["ms"] * 1e3, 3),
+                      "torch_sum": round(c1["library_ms"] * 1e3, 3),
+                      "bound": round(c1["bound_ms"] * 1e3, 3)},
             "ragged_us": ragged,
             "word_cluster": {key: {k: v for k, v in c.items()
                                    if k not in ("bound_by",)}

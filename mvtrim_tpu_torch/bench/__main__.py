@@ -37,12 +37,15 @@ MEASUREMENTS = {"kernel": "kernel", "op": "whole op (K6 + K3)",
                 "capacity_sub_control": "C7 capacity control + sub",
                 "capacity_mm_control": "C8 capacity control, low bytes",
                 "matrix_control": "C10 tensor-core matrix control"}
-# (numerator, denominator, label): ratios of device time a line names
-RATIOS = (("kernel", "votes_control",
-           "K4+K5 over C9 (what C9's launch could gain)"),
-          ("votes_control", "stream_control",
+# (family, numerator, denominator, label): ratios of device time a line
+# of the family names
+RATIOS = (("mv", "kernel", "compute_control",
+           "K4+K5 over C5 (what C5's launch could gain, rule included)"),
+          ("mv", "kernel", "votes_control",
+           "K4+K5 over C9 (the same, without the rule)"),
+          ("mv", "votes_control", "stream_control",
            "C9 over C3 (the scatter against the stream)"),
-          ("stream_control", "capacity_control", "C3 over C6"))
+          ("mv", "stream_control", "capacity_control", "C3 over C6"))
 AUDIT = ("CUDA graph of N launches over K rotated buffers (K x the bytes "
          "a launch reads >= 100 MB), device time between two events; "
          "int64 checksum of every launch's outputs against the plain "
@@ -122,9 +125,9 @@ def describe(cell: dict, card: str) -> str:
                      f"{m['pct_of_ops_peak']:.1f}% of the peak)")
         text += f", bound {m['bound_us']:.3f} us by {m['bound_by']}"
         parts.append(text)
-    for num, den, label in RATIOS:
+    for family, num, den, label in RATIOS:
         r = _ratio(cell, num, den)
-        if r is not None:
+        if family == cell["family"] and r is not None:
             parts.append(f"{label} {r:.3f}")
     parts.append(f"bound {cell['bound_us']:.3f} us by {cell['bound_by']}")
     ok = all(cell[name]["checksum_ok"] for name in MEASUREMENTS
@@ -157,8 +160,8 @@ def summary(cell: dict) -> dict:
             out[f"{name}_bound_us"] = cell[name]["bound_us"]
     if "stream_control" in cell:
         out["pct_of_control"] = _share(cell["stream_control"], k)
-    for num, den, label in RATIOS:
-        if _ratio(cell, num, den) is not None:
+    for family, num, den, _ in RATIOS:
+        if family == cell["family"] and _ratio(cell, num, den) is not None:
             out[f"{num}_over_{den}"] = _ratio(cell, num, den)
     return out
 

@@ -4,26 +4,31 @@ A control is measured beside a product kernel and answers what that
 kernel's launch could do at best on the card, or what one stage of it
 costs:
 
-* the stream controls (``csrc/bench_controls.cu``) keep a product kernel's
-  launch (grid, CTA shape, frames a CTA, load width), read every byte it
-  reads and do trivial integer arithmetic: their rate is the practical
-  memory ceiling of that launch.  C1 ``word_stream_control`` follows K1
-  (``cluster_bits_op`` / ``cluster_words_op``), C2 ``sad_stream_control``
-  K6 (``sad_grid_op``).
-* C3 ``mv_stream_control`` and C9 ``mv_votes_control`` (``noclu``) read
-  K4+K5's ragged payload (``mv_cluster_op``) on a launch made for the card
-  (``csrc/bench_controls.cu``: a frame to a small CTA, a persistent grid
-  taking the frames in turn): C3 streams the rows below the counts with a
-  trivial sum, what the card can stream of the payload; C9 scatters every
-  MV K4+K5's keep rule keeps into a 32-bit histogram and counts them,
-  what the card can scatter of it.  K4+K5 against C9 is what moving
-  K4+K5 onto this launch could gain, C9 against C3 the scatter's own
-  cost.
-* the compute controls are the product bodies of ``csrc/sad_block.cu``
-  (C4 ``sad_compute_control``) and ``csrc/mv_cluster.cu`` (C5
-  ``mv_compute_control``) instantiated a second time with the frame index
-  held at one resident frame, so the same loads and arithmetic run from
-  the L2: their rate is the arithmetic ceiling of the product body.
+* C2 ``sad_stream_control`` (``csrc/bench_controls.cu``) keeps K6's launch
+  (``sad_grid_op``: grid, CTA shape, load width), reads every byte K6
+  reads and does trivial integer arithmetic: its rate is the practical
+  memory ceiling of that launch.
+* C1 ``word_stream_control`` reads K1's rows (``cluster_bits_op`` /
+  ``cluster_words_op``) on a launch made for the card (a warp a frame,
+  every 16-byte load in flight at once): what the card can stream of
+  them.  K1 against C1 is what K1 could gain on C1's launch.
+* C3 ``mv_stream_control``, C9 ``mv_votes_control`` (``noclu``) and C5
+  ``mv_compute_control`` read K4+K5's ragged payload (``mv_cluster_op``)
+  on a launch made for the card (``csrc/bench_controls.cu``: a frame to
+  a small CTA, a persistent grid taking the frames in turn): C3 streams
+  the rows below the counts with a trivial sum, what the card can stream
+  of the payload; C9 scatters every MV K4+K5's keep rule keeps into a
+  32-bit histogram and counts them, what the card can scatter of it; C5
+  runs K4+K5's whole rule (scatter, the bit the thr-th vote sets, the
+  word rule, the reduction) with the frame index held at frame 0, so
+  every frame decides the one frame read from the L2: the arithmetic
+  ceiling of the decision.  K4+K5 against C5 is what moving K4+K5 onto
+  this launch could gain, rule included; against C9 without the rule; C9
+  against C3 is the scatter's own cost.
+* C4 ``sad_compute_control`` is K6's body (``csrc/sad_block.cu``)
+  instantiated a second time with the frame index held at one resident
+  frame, so the same loads and arithmetic run from the L2: its rate is
+  the arithmetic ceiling of K6's body.
 * the capacity controls (``csrc/bench_controls.cu``) are K4+K5's launch
   (one CTA a frame) over all M slots a frame, as
   ``benchmarks/mv_bench.py``'s TPU controls read them: C6
@@ -64,7 +69,7 @@ def _on(t: torch.Tensor, name: str) -> str:
     return kind
 
 
-# --- C1: K1's launch ---
+# --- C1: K1's rows, a warp a frame ---
 
 def word_rows(payload: torch.Tensor, geom: GridGeometry) -> torch.Tensor:
     """K1's view of a payload as uint8 rows [B, gh, pitch]: the bits
@@ -91,8 +96,8 @@ def word_stream_control_plain(rows: torch.Tensor,
 
 def word_stream_control(payload: torch.Tensor,
                         geom: GridGeometry) -> torch.Tensor:
-    """The bits or words payload of K1 -> int32 [B], the stream control of
-    K1's launch (``word_stream_control_plain`` of ``word_rows``)."""
+    """The bits or words payload of K1 -> int32 [B], the stream of K1's
+    rows (``word_stream_control_plain`` of ``word_rows``)."""
     rows = word_rows(payload, geom)
     if _on(rows, "word_stream_control") == "cpu":
         return word_stream_control_plain(rows, geom)
@@ -215,7 +220,7 @@ def mv_stream_control(mvs: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
 mv_stream_control.launches = 0
 
 
-# --- C5: K4+K5's body over one resident frame ---
+# --- C5: K4+K5's decision over one held frame, a frame to a small CTA ---
 
 def mv_compute_control_plain(mvs: torch.Tensor, counts: torch.Tensor,
                              geom: GridGeometry, bound: int,
@@ -235,8 +240,9 @@ def mv_compute_control(mvs: torch.Tensor, counts: torch.Tensor,
                        geom: GridGeometry, bound: int, vectors_needed: int,
                        clusters_needed: int, block_shift: int):
     """``mv_cluster_op``'s arguments -> (counts int32 [B], motion bool [B])
-    from K4+K5's body with the frame index held at frame 0
-    (``mv_compute_control_plain``)."""
+    from K4+K5's rule with the frame index held at frame 0
+    (``mv_compute_control_plain``); the histogram in global scratch where
+    ``mv_cluster_op``'s would be."""
     mv_ops._check_mvs(mvs, counts)
     if mvs.shape[0] < 1:
         raise ValueError("mv_compute_control needs a frame")

@@ -1,13 +1,14 @@
 """The mv family: K4+K5 (``csrc/mv_cluster.cu``) beside C3, the rows below
 the counts streamed on a launch of small CTAs that take the frames in
-turn, C5, its body over one resident frame, C6, its launch over all M
-slots (capacity, not count), C9, its vote scatter without the cluster rule
-on C3's kind of launch, and its bound; at full counts also C7 and C8 (C6
-with a second dst_x stream, with the fields' low bytes) and C10, the
-one-hot vote product's shapes on the tensor cores.  Each cell's line names
-K4+K5 over C9 (what moving K4+K5 onto C9's launch could gain), C9 over C3
-(the scatter against the stream of the same rows) and C3 over C6 (reading
-by count against reading by capacity).
+turn, C5, its whole rule over one held frame on that kind of launch, C6,
+its launch over all M slots (capacity, not count), C9, its vote scatter
+without the cluster rule on C3's kind of launch, and its bound; at full
+counts also C7 and C8 (C6 with a second dst_x stream, with the fields' low
+bytes) and C10, the one-hot vote product's shapes on the tensor cores.
+Each cell's line names K4+K5 over C5 (what moving K4+K5 onto that launch
+could gain, its rule included), K4+K5 over C9 (the same without the
+rule), C9 over C3 (the scatter against the stream of the same rows) and
+C3 over C6 (reading by count against reading by capacity).
 
 The port's counterpart of ``benchmarks/mv_bench.py`` and of ``bench.py``'s
 fused-MV secondary: B = 2048 frames a launch at 1080p (capacity M = 8192)
@@ -140,7 +141,7 @@ def run(r: audit.Run) -> list[dict]:
             "compute_control": audit.measure(
                 r, compute, inputs, comp_ref, n=n,
                 nbytes=first * 8 + 4 + b * 5, frames=b,
-                kernel="mv_cluster_resident_kernel"),
+                kernel="mv_compute_control_kernel"),
             "capacity_control": audit.measure(
                 r, lambda fc: controls.mv_capacity_control(*fc), inputs,
                 [int(controls.mv_capacity_control_plain(*fc).sum())

@@ -1,5 +1,7 @@
 """The words family: K1 (``csrc/word_cluster.cu``) on the bits and words
-payloads, each beside C1, the stream control of its launch, and its bound.
+payloads, each beside C1, the same rows streamed on a launch made for the
+card (a warp a frame, every load in flight at once: what K1 could gain on
+that launch), and its bound.
 
 The port's counterpart of ``benchmarks/word_bench.py`` and of the words
 legs of ``bench.py`` (the headline and its stream control, the 4K pair).
@@ -57,7 +59,7 @@ def run(r: audit.Run) -> list[dict]:
             control = audit.measure(
                 r, lambda t, geom=geom: controls.word_stream_control(t, geom),
                 inputs, ctrl_ref, n=n, nbytes=b * (frame_bytes + 4),
-                frames=b, kernel="word_stream_control_kernel")
+                frames=b, kernel="word_bit0_control_kernel")
             bound = audit.word_bound(geom, b, pitch)
             cells.append({
                 "family": "words", "key": f"{label} B={full_b} {payload}",

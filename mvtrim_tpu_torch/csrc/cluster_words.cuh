@@ -1,5 +1,5 @@
-// The cluster rule on bit words, shared by word_cluster.cu, cluster_map.cu
-// and mv_cluster.cu.
+// The cluster rule on bit words, shared by word_cluster.cu, cluster_map.cu,
+// mv_cluster.cu and bench_controls.cu (C5's rule, the controls' block sum).
 //
 // Layout (the word-domain payload's): a grid [gh, gw] is gh rows of gww =
 // ceil(gw / 32) words; bit l of word c of row y is cell x = 32c + l; bits

@@ -1,7 +1,6 @@
 // A CTA's span of consecutive frames, brought into shared memory with one
 // TMA 1-D bulk copy: the loader of the word-domain cluster kernel
-// (word_cluster.cu) and of its stream control (bench_controls.cu), which
-// must read the same bytes the same way.
+// (word_cluster.cu).
 //
 // The frames are rows of bytes [B, gh, pitch]; a CTA takes F consecutive
 // frames, one warp a frame.  One thread issues a bulk copy

@@ -59,12 +59,13 @@
 
 namespace {
 
+using mvt::hist_shared_bytes;
 using mvt::kept_cell;
 using mvt::window_lo;
 using mvt::window_rows;
+using mvt::words_before_hist;
 
 constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
 
 // Zeroes p[0, n) with 16-byte stores where p's alignment allows them, the
 // threads of the block striding.  p is 4-byte aligned.
@@ -81,33 +82,13 @@ __device__ __forceinline__ void zero_cells(int32_t* p, int n) {
     if (tid < n - tail) p[tail + tid] = 0;
 }
 
-// 32-bit words before the histogram in shared memory: the warp sums, then
-// the packed rows, padded to 16 bytes.
-__host__ __device__ __forceinline__ int words_before_hist(int rows, int gw) {
-    return (32 + rows * ((gw + 31) / 32) + 3) & ~3;
-}
-
-// Dynamic shared memory of a block, in bytes, with or without the histogram.
-size_t shared_bytes(int rows, int gw, bool with_hist) {
-    size_t words = static_cast<size_t>(words_before_hist(rows, gw));
-    if (with_hist) words += static_cast<size_t>(rows) * gw;
-    return words * sizeof(uint32_t);
-}
-
-// The body's two instances, one kernel each.
-//   kProduct   K4+K5.
-//   kResident  C5, the compute control (the arithmetic ceiling of this
-//              launch): the frame index held at frame 0, so every CTA reads
-//              frame 0's count and MVs, which stay in the L2, and writes its
-//              own frame's outputs.
-enum class Body { kProduct, kResident };
-
-template <Body kBody>
-__device__ __forceinline__ void mv_cluster_body(
-    const short4* __restrict__ mvs, const int32_t* __restrict__ mv_counts,
-    int batch, int m, int gh, int gw, int y_min, int y_max, long long bound,
-    int thr, int need, int shift, int32_t* __restrict__ scratch,
-    int32_t* __restrict__ counts, uint8_t* __restrict__ motion) {
+__global__ void __launch_bounds__(kThreads)
+mv_cluster_kernel(const short4* __restrict__ mvs,
+                  const int32_t* __restrict__ mv_counts, int batch, int m,
+                  int gh, int gw, int y_min, int y_max, long long bound,
+                  int thr, int need, int shift, int32_t* __restrict__ scratch,
+                  int32_t* __restrict__ counts,
+                  uint8_t* __restrict__ motion) {
     extern __shared__ __align__(16) uint32_t smem[];
     uint32_t* sums = smem;
     uint32_t* words = smem + 32;
@@ -130,10 +111,9 @@ __device__ __forceinline__ void mv_cluster_body(
         for (int i = tid; i < rows * gww; i += kThreads) words[i] = fill;
         __syncthreads();
 
-        const int fb = kBody == Body::kResident ? 0 : b;  // the frame read
-        const int count = mv_counts[fb];
+        const int count = mv_counts[b];
         const int n = min(max(count, 0), m);
-        const short4* f = mvs + static_cast<size_t>(fb) * m;
+        const short4* f = mvs + static_cast<size_t>(b) * m;
 #pragma unroll 8
         for (int k = tid; k < n; k += kThreads) {
             const short4 mv = __ldg(f + k);
@@ -161,85 +141,21 @@ __device__ __forceinline__ void mv_cluster_body(
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
-mv_cluster_kernel(const short4* __restrict__ mvs,
-                  const int32_t* __restrict__ mv_counts, int batch, int m,
-                  int gh, int gw, int y_min, int y_max, long long bound,
-                  int thr, int need, int shift, int32_t* __restrict__ scratch,
-                  int32_t* __restrict__ counts,
-                  uint8_t* __restrict__ motion) {
-    mv_cluster_body<Body::kProduct>(mvs, mv_counts, batch, m, gh, gw, y_min,
-                                    y_max, bound, thr, need, shift, scratch,
-                                    counts, motion);
-}
-
-__global__ void __launch_bounds__(kThreads)
-mv_cluster_resident_kernel(const short4* __restrict__ mvs,
-                           const int32_t* __restrict__ mv_counts, int batch,
-                           int m, int gh, int gw, int y_min, int y_max,
-                           long long bound, int thr, int need, int shift,
-                           int32_t* __restrict__ scratch,
-                           int32_t* __restrict__ counts,
-                           uint8_t* __restrict__ motion) {
-    mv_cluster_body<Body::kResident>(mvs, mv_counts, batch, m, gh, gw, y_min,
-                                     y_max, bound, thr, need, shift, scratch,
-                                     counts, motion);
-}
-
-// The kernel of an instance (both take the same arguments).
-template <Body kBody>
-auto kernel_of() {
-    if constexpr (kBody == Body::kProduct) return mv_cluster_kernel;
-    else return mv_cluster_resident_kernel;
-}
-
 // Lets the kernel take `smem` bytes of dynamic shared memory on `device`,
 // asked of the CUDA runtime only when more than it allowed before, so a
 // CUDA graph captures launches without the attribute call once eager
 // launches at the same shapes have run.
-template <Body kBody>
 cudaError_t allow_shared(int device, size_t smem) {
     static std::atomic<size_t> allowed[mvt::kMaxDevices];
     const bool cached = device >= 0 && device < mvt::kMaxDevices;
     if (cached && allowed[device].load(std::memory_order_relaxed) >= smem)
         return cudaSuccess;
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel_of<kBody>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mv_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err == cudaSuccess && cached)
         allowed[device].store(smem, std::memory_order_relaxed);
     return err;
-}
-
-template <Body kBody>
-int launch(const void* mvs, const void* mv_counts, int batch, int m, int gh,
-           int gw, int y_min, int y_max, long long bound, int thr, int need,
-           int shift, void* scratch, long long scratch_cells, void* counts,
-           void* motion, int device, void* stream) {
-    const mvt::DeviceGuard guard(device);
-    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
-    if (batch <= 0) return static_cast<int>(cudaGetLastError());
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int rows = window_rows(gh, y_min, y_max);
-    const long long cells = static_cast<long long>(rows) * gw;
-    int blocks = batch;
-    if (scratch != nullptr && cells > 0) {
-        if (scratch_cells < cells)
-            return static_cast<int>(cudaErrorInvalidValue);
-        const long long fit = scratch_cells / cells;
-        blocks = fit < batch ? static_cast<int>(fit) : batch;
-    }
-    const size_t smem = shared_bytes(rows, gw, scratch == nullptr);
-    if (smem > 48 * 1024) {
-        const cudaError_t err = allow_shared<kBody>(device, smem);
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    kernel_of<kBody>()<<<blocks, kThreads, smem, s>>>(
-        static_cast<const short4*>(mvs),
-        static_cast<const int32_t*>(mv_counts), batch, m, gh, gw, y_min,
-        y_max, bound, thr, need, shift, static_cast<int32_t*>(scratch),
-        static_cast<int32_t*>(counts), static_cast<uint8_t*>(motion));
-    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -264,7 +180,7 @@ extern "C" long long mvt_mv_cluster_scratch(int batch, int gh, int gw,
     const int rows = window_rows(gh, y_min, y_max);
     if (batch <= 0 ||
         (!force_global &&
-         shared_bytes(rows, gw, true) <= static_cast<size_t>(optin)))
+         hist_shared_bytes(rows, gw, true) <= static_cast<size_t>(optin)))
         return 0;
     return static_cast<long long>(min(batch, 2 * sms)) * rows * gw;
 }
@@ -284,24 +200,28 @@ extern "C" int mvt_mv_cluster_counts(const void* mvs, const void* mv_counts,
                                      void* scratch, long long scratch_cells,
                                      void* counts, void* motion, int device,
                                      void* stream) {
-    return launch<Body::kProduct>(mvs, mv_counts, batch, m, gh, gw, y_min,
-                                  y_max, bound, thr, need, shift, scratch,
-                                  scratch_cells, counts, motion, device,
-                                  stream);
-}
-
-// The compute control: the same launch, arguments and outputs, the frame
-// index held at frame 0 (mv_cluster_body), so counts[b] and motion[b] are
-// frame 0's decision for every b < batch.
-extern "C" int mvt_mv_compute_control(const void* mvs, const void* mv_counts,
-                                      int batch, int m, int gh, int gw,
-                                      int y_min, int y_max, long long bound,
-                                      int thr, int need, int shift,
-                                      void* scratch, long long scratch_cells,
-                                      void* counts, void* motion, int device,
-                                      void* stream) {
-    return launch<Body::kResident>(mvs, mv_counts, batch, m, gh, gw, y_min,
-                                   y_max, bound, thr, need, shift, scratch,
-                                   scratch_cells, counts, motion, device,
-                                   stream);
+    const mvt::DeviceGuard guard(device);
+    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+    if (batch <= 0) return static_cast<int>(cudaGetLastError());
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int rows = window_rows(gh, y_min, y_max);
+    const long long cells = static_cast<long long>(rows) * gw;
+    int blocks = batch;
+    if (scratch != nullptr && cells > 0) {
+        if (scratch_cells < cells)
+            return static_cast<int>(cudaErrorInvalidValue);
+        const long long fit = scratch_cells / cells;
+        blocks = fit < batch ? static_cast<int>(fit) : batch;
+    }
+    const size_t smem = hist_shared_bytes(rows, gw, scratch == nullptr);
+    if (smem > 48 * 1024) {
+        const cudaError_t err = allow_shared(device, smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    mv_cluster_kernel<<<blocks, kThreads, smem, s>>>(
+        static_cast<const short4*>(mvs),
+        static_cast<const int32_t*>(mv_counts), batch, m, gh, gw, y_min,
+        y_max, bound, thr, need, shift, static_cast<int32_t*>(scratch),
+        static_cast<int32_t*>(counts), static_cast<uint8_t*>(motion));
+    return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,6 @@
-// K4+K5's keep rule for one MV, shared by mv_cluster.cu (K4+K5, C5) and
-// bench_controls.cu (C9), so its traps live in one place:
+// K4+K5's keep rule for one MV, shared by mv_cluster.cu (K4+K5) and
+// bench_controls.cu (C5, C9), so its traps live in one place, and the
+// shared-memory layout K4+K5 and C5 share:
 //
 //   keep  when  mag >= bound  and  0 <= gx < gw  and  y_lo <= gy < y_hi
 //
@@ -12,6 +13,7 @@
 
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -26,6 +28,21 @@ __host__ __device__ __forceinline__ int window_rows(int gh, int y_min,
                                                     int y_max) {
     const int hi = y_max < gh ? y_max : gh;
     return hi > window_lo(y_min) ? hi - window_lo(y_min) : 0;
+}
+
+// The shared memory of a kernel that packs the window's rows into words
+// beside a 32-bit vote histogram (K4+K5, C5): the 32 warp sums, the words
+// padded to 16 bytes, then the histogram where it lives there.  32-bit
+// words before the histogram:
+__host__ __device__ __forceinline__ int words_before_hist(int rows, int gw) {
+    return (32 + rows * ((gw + 31) / 32) + 3) & ~3;
+}
+
+// That shared memory in bytes, with or without the histogram.
+inline size_t hist_shared_bytes(int rows, int gw, bool with_hist) {
+    size_t words = static_cast<size_t>(words_before_hist(rows, gw));
+    if (with_hist) words += static_cast<size_t>(rows) * gw;
+    return words * sizeof(uint32_t);
 }
 
 // Whether K4+K5's rule keeps an MV, and its cell: row r of the window

@@ -35,8 +35,8 @@
 // costs no registers.  The copy takes the span's 16-byte-aligned middle;
 // plain loads take the unaligned head and tail, and no byte past the span is
 // read (a bits frame is 1,020 B at 1080p, and the base may sit anywhere);
-// frame_span.cuh holds that loader and the choice of F, which the stream
-// control of this launch (bench_controls.cu) shares.  The rule then runs from shared memory: lane l takes word column c = l %
+// frame_span.cuh holds that loader and the choice of F.  The rule then
+// runs from shared memory: lane l takes word column c = l %
 // gww of a band of rows, walking down it with the rows above and below in
 // registers, so each row costs one word read (two aligned 32-bit reads and a
 // __funnelshift_r at an unaligned pitch, one where pitch and base are 4-byte

@@ -14,9 +14,10 @@
   and dispatch-batch legs on the CPU, as ``tests/test_bench_smoke.py``
   runs the JAX ones.
 * ``cuda``-marked: each control against its plain version on the card
-  (bases 1 B and 4 B off, the bits' 15 B pitch), and a product op captured
-  in a CUDA graph against eager calls (``python -m pytest -m cuda
-  tests/test_torch_bench.py`` on a card).
+  (bases 1 B and 4 B off, the bits' 15 B pitch; C1 also at B = 1 and 3
+  and on 8K's 259,200-byte frames, C5 at its launch's edges), and a
+  product op captured in a CUDA graph against eager calls (``python -m
+  pytest -m cuda tests/test_torch_bench.py`` on a card).
 """
 
 import importlib.util
@@ -113,6 +114,39 @@ def test_word_stream_control_matches_the_jax_control(jax_bench, dims,
                              else 4 * gww)
     np.testing.assert_array_equal(
         controls.word_stream_control_plain(rows, geom).numpy(), want)
+    np.testing.assert_array_equal(
+        controls.word_stream_control(t, geom).numpy(), want)
+
+
+@pytest.mark.parametrize("b", [1, 3, 5])
+@pytest.mark.parametrize("dims,shift", [((1920, 1080), 4), ((3840, 2160), 4),
+                                        ((7680, 4320), 2)])
+@pytest.mark.parametrize("payload", ["bits", "words"])
+def test_word_stream_control_matches_the_jax_control_at_edges(
+        jax_bench, dims, shift, b, payload):
+    """C1's launch edges on the CPU: B = 1 and 3 (fewer frames than a CTA
+    takes), 5 (not a multiple of it), 4K, and 8K at BLOCK_SHIFT 2
+    (259,200-byte bits frames, past a block's shared memory)."""
+    import jax
+
+    rng = np.random.default_rng(sum(dims) + b)
+    cfg = Config(block_shift=shift, block_size=1 << shift)
+    geom = GridGeometry.build(*dims, cfg)
+    bits = random_bits(rng, b, geom)
+    words = cluster_ops.repack_bits_words(bits, geom)
+    _, used, lanes = cluster_ops.word_geometry(geom)
+    stacked_t = np.zeros((1, lanes, b), np.int32)
+    stacked_t[0, :used] = words.T
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax.jit(jax_bench.build_control_sweep_T(
+            1, lanes, b, b, 1))(stacked_t))[0]
+    t = torch.from_numpy(bits) if payload == "bits" \
+        else torch.from_numpy(np.ascontiguousarray(words))
+    if dims == (7680, 4320):
+        assert geom.gh * ((geom.gw + 7) // 8) == 259200
+    np.testing.assert_array_equal(
+        controls.word_stream_control_plain(controls.word_rows(t, geom),
+                                           geom).numpy(), want)
     np.testing.assert_array_equal(
         controls.word_stream_control(t, geom).numpy(), want)
 
@@ -219,36 +253,77 @@ def test_mv_stream_control_wraps_to_int32():
     assert controls.mv_stream_control(mvs, counts).tolist() == [want]
 
 
-@pytest.mark.parametrize("count0", [0, 1, 300])
-def test_mv_compute_control_is_frame_zeros_decision(count0):
-    rng = np.random.default_rng(count0)
-    cfg = Config()
-    geom = GridGeometry.build(1920, 1080, cfg)
-    b, m = 5, 512
-    fields = list(seeded_mvs(rng, b, m, 1920, 1080))
-    # a cluster in frame 0: 8 x 8 cells of two votes each
+def oracle_decision(fields, count0: int, geom, cfg) -> int:
+    """Frame 0's cluster count by the NumPy oracle, its count clamped to
+    0..M as the kernel reads it."""
+    n0 = min(max(count0, 0), fields[0].shape[1])
+    mvs0 = np.stack([f[0, :n0] for f in fields], axis=1)
+    grid = oracle.vote_grid(mvs0.astype(np.int64), geom.gw, geom.gh,
+                            threshold_sq=cfg.mv_threshold_sq,
+                            block_shift=cfg.block_shift, y_min=geom.y_min,
+                            y_max=geom.y_max)
+    return oracle.count_clusters(grid, vectors_needed=cfg.vectors_needed,
+                                 y_min=geom.y_min, y_max=geom.y_max)
+
+
+def cluster_fields(rng, b: int, m: int, width: int, height: int):
+    """seeded_mvs with a cluster in frame 0: 8 x 8 cells of two votes each
+    in its first 128 MVs."""
+    fields = list(seeded_mvs(rng, b, m, width, height))
     k = np.arange(128)
     fields[0][0, :128] = 400 + (k % 8) * 16
     fields[1][0, :128] = 400 + (k // 8 % 8) * 16
     fields[2][0, :128] = fields[0][0, :128] - 8
     fields[3][0, :128] = fields[1][0, :128] - 8
+    return fields
+
+
+@pytest.mark.parametrize("count0", [0, 1, 300, 512, 600, -7, -2 ** 31])
+def test_mv_compute_control_is_frame_zeros_decision(count0):
+    rng = np.random.default_rng(abs(count0))
+    cfg = Config()
+    geom = GridGeometry.build(1920, 1080, cfg)
+    b, m = 5, 512
+    fields = cluster_fields(rng, b, m, 1920, 1080)
     counts = np.array([count0, 512, 100, 7, 0], np.int32)
     bound = mv_ops.threshold_bound(cfg.mv_threshold_sq)
     got, motion = controls.mv_compute_control(
         as_payload(fields), torch.from_numpy(counts), geom, bound,
         cfg.vectors_needed, cfg.clusters_needed, cfg.block_shift)
-    mvs0 = np.stack([f[0, :count0] for f in fields], axis=1)
-    grid = oracle.vote_grid(mvs0.astype(np.int64), geom.gw, geom.gh,
-                            threshold_sq=cfg.mv_threshold_sq,
-                            block_shift=cfg.block_shift, y_min=geom.y_min,
-                            y_max=geom.y_max)
-    want = oracle.count_clusters(grid, vectors_needed=cfg.vectors_needed,
-                                 y_min=geom.y_min, y_max=geom.y_max)
+    want = oracle_decision(fields, count0, geom, cfg)
     assert got.tolist() == [want] * b
     need = oracle.effective_clusters_needed(cfg.clusters_needed)
     assert motion.tolist() == [want >= need and count0 > 0] * b
-    if count0 == 300:
+    if count0 >= 300:
         assert want >= need
+    if count0 <= 0:
+        assert want == 0
+
+
+@pytest.mark.parametrize("count0", [1000, 1001, -3])
+@pytest.mark.parametrize("vectors_needed", [0, 2, 255])
+@pytest.mark.parametrize("dims", [(1920, 1080), (3840, 2160)])
+def test_mv_compute_control_at_thresholds_and_4k(dims, vectors_needed,
+                                                 count0):
+    """C5's plain version against the oracle at VECTORS_NEEDED 0 (off-grid
+    rows read as all ones), the default and 255, above any cell's votes
+    here, at 1080p and 4K, frame 0 at M, above M and negative."""
+    rng = np.random.default_rng(vectors_needed + count0 + dims[0])
+    cfg = Config(vectors_needed=vectors_needed)
+    geom = GridGeometry.build(*dims, cfg)
+    b, m = 3, 1000
+    fields = cluster_fields(rng, b, m, *dims)
+    counts = np.array([count0, m, 17], np.int32)
+    bound = mv_ops.threshold_bound(cfg.mv_threshold_sq)
+    got, motion = controls.mv_compute_control(
+        as_payload(fields), torch.from_numpy(counts), geom, bound,
+        cfg.vectors_needed, cfg.clusters_needed, cfg.block_shift)
+    want = oracle_decision(fields, count0, geom, cfg)
+    assert got.tolist() == [want] * b
+    need = oracle.effective_clusters_needed(cfg.clusters_needed)
+    assert motion.tolist() == [want >= need and count0 > 0] * b
+    if vectors_needed == 255:
+        assert want == 0
 
 
 # --- the wrappers' checks ---
@@ -459,22 +534,44 @@ def check_exact(got: torch.Tensor, want: torch.Tensor) -> None:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dims,b", [((1920, 1080), 2048), ((1920, 1080), 750),
-                                    ((3840, 2160), 777), ((200, 144), 5)])
+                                    ((3840, 2160), 777), ((200, 144), 5),
+                                    ((1920, 1080), 1), ((1920, 1080), 3),
+                                    ((3840, 2160), 2048)])
 @pytest.mark.parametrize("payload,off", [("bits", 0), ("bits", 1),
                                          ("words", 0), ("words", 4)])
 def test_cuda_word_stream_control(dims, b, payload, off):
     need_card()
-    geom = GridGeometry.build(*dims, Config())
+    check_word_stream_control(GridGeometry.build(*dims, Config()), b,
+                              payload, off)
+
+
+def check_word_stream_control(geom, b: int, payload: str, off: int) -> None:
+    """C1 on b seeded frames of the payload at a base off bytes past an
+    aligned address, exact against its plain version, one launch."""
     bits = torch.from_numpy(random_bits(np.random.default_rng(b), b, geom))
     t = bits if payload == "bits" else cluster_ops.bits_to_words(bits, geom)
     t = offset(t.cuda(), off)
-    if payload == "bits" and dims == (1920, 1080):
+    if payload == "bits" and geom.gw == 120:
         assert t.shape[2] == 15
     before = controls.word_stream_control.launches
     got = controls.word_stream_control(t, geom)
     assert controls.word_stream_control.launches == before + 1
     check_exact(got, controls.word_stream_control_plain(
         controls.word_rows(t, geom), geom))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 5])
+@pytest.mark.parametrize("payload,off", [("bits", 0), ("bits", 1),
+                                         ("words", 0), ("words", 4)])
+def test_cuda_word_stream_control_past_shared_memory(b, payload, off):
+    """8K at BLOCK_SHIFT 2: 259,200-byte bits frames, more than a block's
+    shared memory."""
+    need_card()
+    geom = GridGeometry.build(7680, 4320,
+                              Config(block_shift=2, block_size=4))
+    assert geom.gh * ((geom.gw + 7) // 8) == 259200
+    check_word_stream_control(geom, b, payload, off)
 
 
 @pytest.mark.cuda
@@ -518,6 +615,51 @@ def test_cuda_mv_controls(dims, m, b, full):
         want, want_motion = controls.mv_compute_control_plain(mvs, c, *args)
         check_exact(got, want)
         assert torch.equal(motion.cpu(), want_motion.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims,m,b", [((1920, 1080), 8192, 2048),
+                                      ((3840, 2160), 16384, 256),
+                                      ((1920, 1080), 8192, 1),
+                                      ((1920, 1080), 8192, 3),
+                                      ((1920, 1080), 8191, 33),
+                                      ((1920, 1080), 512, 5000),
+                                      ((7680, 4320), 8192, 16)])
+@pytest.mark.parametrize("held", ["0", "1", "M", "above M", "negative"])
+def test_cuda_compute_control_at_edges(dims, m, b, held):
+    """C5 on its launch, counts and motion exact, one launch a call: fewer
+    frames than CTAs, an odd M and a base 8 bytes off (one MV a load),
+    more frames than the grid's CTAs, 8K's global histogram; frame 0's
+    count 0, 1, M, above M and negative; at M also VECTORS_NEEDED 0 and
+    above any cell's votes."""
+    need_card()
+    cfg = Config()
+    geom = GridGeometry.build(*dims, cfg)
+    rng = np.random.default_rng(m + b + len(held))
+    fields = cluster_fields(rng, b, m, *dims)
+    mvs = as_payload(fields).cuda()
+    counts = np.exp(rng.uniform(0, np.log(m), size=b)).astype(np.int32)
+    counts[0] = {"0": 0, "1": 1, "M": m, "above M": m + 1,
+                 "negative": -7}[held]
+    c = torch.from_numpy(counts).cuda()
+    bound = mv_ops.threshold_bound(cfg.mv_threshold_sq)
+    need = oracle.effective_clusters_needed(cfg.clusters_needed)
+    bases = [mvs] + ([offset(mvs, 8)] if m % 2 == 0 else [])
+    thresholds = [cfg.vectors_needed] + ([0, m + 1] if held == "M" else [])
+    for base in bases:
+        for vn in thresholds:
+            args = (geom, bound, vn, cfg.clusters_needed, cfg.block_shift)
+            before = controls.mv_compute_control.launches
+            got, motion = controls.mv_compute_control(base, c, *args)
+            assert controls.mv_compute_control.launches == before + 1
+            want, want_motion = controls.mv_compute_control_plain(base, c,
+                                                                  *args)
+            check_exact(got, want)
+            assert torch.equal(motion.cpu(), want_motion.cpu())
+            assert torch.equal(want_motion.cpu(),
+                               (want.cpu() >= need) & bool(counts[0] > 0))
+    if held in ("0", "negative"):
+        assert int(want[0]) == 0
 
 
 @pytest.mark.cuda
