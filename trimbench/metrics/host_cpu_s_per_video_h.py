@@ -1,0 +1,9 @@
+"""The process's user and system CPU seconds over the window (all
+threads), per hour of video completed in it: ``cpu_s_per_video_h``,
+read per layer in the cells where it is too unsteady to bound.  In a
+traced run it includes the profiler's own host cost."""
+
+
+def read(run):
+    video_h = run.video_s() / 3600.0
+    return run.cpu_s / video_h if video_h > 0 else None
