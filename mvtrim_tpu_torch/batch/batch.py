@@ -26,8 +26,8 @@ from ..core.config import Config
 from ..cut.executor import CutQueue
 from ..utils import logging as log
 from ..utils import system
-from ..utils.timing import TimingCollector
-from ..pipeline.pipeline import ProcessingPipeline
+from ..utils.timing import SPANS, TimingCollector
+from ..pipeline.pipeline import ProcessingPipeline, held_trace
 
 VIDEO_EXTENSIONS = {".mp4", ".mkv", ".ts", ".mov", ".avi"}  # main.cpp:68-69
 
@@ -89,12 +89,19 @@ class BatchProcessor:
 
     def process(self, input_files: list[str], output_dir: str,
                 input_dir: str = "") -> int:
+        """Run the batch (or the watch daemon) to its end; returns the
+        failures.  MVT_PROFILE_DIR's trace is held over all of it."""
         watch = self.cfg.watch_mode
         if not input_files and not watch:
             log.warn("No input files to process")
             return 0
+        with held_trace(self.cfg.profile_dir):
+            return self._process(input_files, output_dir, input_dir, watch)
 
+    def _process(self, input_files: list[str], output_dir: str,
+                 input_dir: str, watch: bool) -> int:
         os.makedirs(output_dir, exist_ok=True)
+        span = SPANS.begin("batch.enqueue") if SPANS.on else None
         for f in input_files:
             self._seen.add(f)
             out = os.path.join(output_dir, os.path.basename(f))
@@ -103,6 +110,8 @@ class BatchProcessor:
                 continue
             self._work.put(f)
         self._total_files = self._work.qsize()
+        if span is not None:
+            SPANS.end(span, self._total_files)
 
         actual_streams = self._plan_streams(self._total_files, watch)
         threads_per_stream = self.cfg.threads_per_stream
@@ -268,8 +277,18 @@ class BatchProcessor:
             log.info(f"Analysis device: {device}", stream_id)
 
         while True:
+            # a file's spans: the wait for it, then its run to its result
+            file_span = span = None
+            if SPANS.on:
+                SPANS.new_file()
+                file_span = SPANS.begin("batch.file")
+                span = SPANS.begin("batch.next_file")
             path = self._get_next_file()
+            if span is not None:
+                SPANS.end(span)
             if path is None:
+                if file_span is not None:
+                    SPANS.end(file_span, stream_id)
                 break
             out = os.path.join(output_dir, os.path.basename(path))
             log.phase("----------------------------------------", stream_id)
@@ -290,6 +309,8 @@ class BatchProcessor:
             result = StreamResult(os.path.basename(path), ret == 0, dt_us)
             with self._lock:
                 self._results.append(result)
+            if file_span is not None:
+                SPANS.end(file_span, stream_id)
             if result.success:
                 log.success(
                     f"Completed: {result.filename} ({dt_us / 1e6:.1f}s)",

@@ -96,7 +96,7 @@ class Config:
     sad_threshold: float = 12.0      # mean-abs-diff per-pixel threshold (SAD path)
     decode_workers: int = 0          # host decode threads (0 = auto)
     pipeline_mode: str = "auto"      # mv | sad | auto (auto: SAD when no MVs)
-    profile_dir: str = ""            # write jax.profiler traces here
+    profile_dir: str = ""            # write a torch.profiler trace here
     metrics_json: str = ""           # append per-video metrics JSON lines here
     archive_mode: bool = False       # single-file mode: shard scan over mesh
     checkpoint_path: str = ""        # archive-scan resume sidecar (JSONL)

@@ -24,6 +24,7 @@ import queue
 import subprocess
 import tempfile
 import threading
+import time
 import dataclasses
 
 from ..core import oracle
@@ -32,6 +33,7 @@ from ..core.types import TimeSegment
 from ..io import native
 from ..utils import logging as log
 from ..utils.system import parse_cpuset_list
+from ..utils.timing import SPANS
 
 
 def _cut_cpus(cfg: Config) -> set[int] | None:
@@ -106,6 +108,9 @@ class CutJob:
     input_path: str
     output_path: str
     segments: list[TimeSegment]
+    # while spans are recorded: (push time_ns, queue depth, file id)
+    pushed: tuple[int, int, int] | None = dataclasses.field(
+        default=None, compare=False, repr=False)
 
 
 def quantized_segments(segments) -> list[tuple[float, float]]:
@@ -244,6 +249,8 @@ class CutQueue:
         self._worker.start()
 
     def push(self, job: CutJob) -> None:
+        if SPANS.on:
+            job.pushed = (time.time_ns(), self._q.qsize() + 1, SPANS.file())
         self._q.put(job)
 
     def _run(self) -> None:
@@ -252,10 +259,19 @@ class CutQueue:
             job = self._q.get()
             if job is None:
                 break
+            span = None
+            if job.pushed is not None and SPANS.on:
+                # cut.wait: from the push to this get (value: the jobs
+                # queued at the push, this one included)
+                pushed_ns, depth, file_id = job.pushed
+                SPANS.add("cut.wait", pushed_ns, depth, file_id)
+                span = SPANS.begin("cut.run")
             log.info(f"[Cut Worker] Processing job from stream "
                      f"{job.stream_id}: {os.path.basename(job.output_path)}")
             rc = execute_cut(job.input_path, job.output_path, job.segments,
                              job.stream_id, self.cfg)
+            if span is not None:
+                SPANS.end(span, len(job.segments))
             self._jobs_done += 1
             if rc != 0:
                 self._failures += 1

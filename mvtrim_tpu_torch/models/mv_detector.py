@@ -19,6 +19,7 @@ from ..core.config import Config
 from ..core.types import GridGeometry
 from ..ops import cluster as cluster_ops
 from ..ops import mv_vote
+from ..utils.timing import SPANS
 
 BACKENDS = ("auto", "torch", "oracle")
 
@@ -40,25 +41,55 @@ def resolve_backend(requested: str) -> str:
 
 
 def stage_and_decide(rows, device: torch.device, op):
-    """Stage one batch in pinned host memory, copy it to ``device``
-    without blocking, decide it with ``op(tensor) -> motion bool``, and
-    copy the motion back into a pinned buffer behind an event.  ``rows``
-    is one numpy array, or a tuple of them that ``op`` takes in order.
+    """Stage one batch, decide it with ``op(tensor) -> motion bool`` on
+    ``device``, and return (host, pending).  ``rows`` is one numpy array,
+    or a tuple of them that ``op`` takes in order.
 
-    Returns (host, pending) with pending = (done, staged, on_device,
-    motion): the caller keeps ``pending`` until it has waited on ``done``
-    (the pinned ``staged`` must not be reused while its copy may still
-    run), then reads ``host``.
+    On a CPU device the op runs on the rows in place: ``host`` is the
+    motion and ``pending`` None.  On CUDA each array is staged in pinned
+    host memory, copied to the card without blocking, decided, and the
+    motion is copied back into a pinned ``host`` buffer behind an event;
+    pending = (done, staged, on_device, motion), which the caller keeps
+    until it has waited on ``done`` (``wait``): the pinned ``staged`` must
+    not be reused while its copy may still run.
+
+    Spans: ``detector.stage`` (value: bytes staged) and
+    ``detector.enqueue`` (value: frames; its launches are the kernels').
     """
+    cuda = device.type == "cuda"
+    span = SPANS.begin("detector.stage") if SPANS.on else None
     arrays = rows if isinstance(rows, tuple) else (rows,)
-    staged = tuple(torch.from_numpy(a).pin_memory() for a in arrays)
-    on_device = tuple(t.to(device, non_blocking=True) for t in staged)
-    motion = op(*on_device)
-    host = torch.empty(motion.shape, dtype=torch.bool, pin_memory=True)
-    host.copy_(motion, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(device))
-    return host, (done, staged, on_device, motion)
+    staged = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+    if cuda:
+        staged = tuple(t.pin_memory() for t in staged)
+    if span is not None:
+        SPANS.end(span, sum(t.nbytes for t in staged))
+    span = SPANS.begin("detector.enqueue") if SPANS.on else None
+    if not cuda:
+        host, pending = op(*staged), None
+    else:
+        on_device = tuple(t.to(device, non_blocking=True) for t in staged)
+        motion = op(*on_device)
+        host = torch.empty(motion.shape, dtype=torch.bool, pin_memory=True)
+        host.copy_(motion, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+        pending = (done, staged, on_device, motion)
+    if span is not None:
+        SPANS.end(span, staged[0].shape[0])
+    return host, pending
+
+
+def wait(pending) -> None:
+    """Wait for a batch that ``stage_and_decide`` left pending (span
+    ``detector.wait``); a batch decided on the CPU has nothing to wait
+    for."""
+    if pending is None:
+        return
+    span = SPANS.begin("detector.wait") if SPANS.on else None
+    pending[0].synchronize()
+    if span is not None:
+        SPANS.end(span)
 
 
 class MVClusterDetector:
@@ -208,10 +239,8 @@ class MVClusterDetector:
         as a numpy array, or a tuple of them, and ``op(*tensors) -> motion
         bool`` decides it.
 
-        On CUDA each batch is staged in pinned host memory, copied to the
-        card without blocking, decided by the kernel, and its motion is
-        copied back into a pinned buffer behind an event.  Each future
-        holds its staging buffers until the resolver has waited on that
+        Each batch goes through ``stage_and_decide``; on CUDA each future
+        holds its staging buffers until the resolver has waited on its
         event: a pinned buffer must not be reused while a copy from it
         may still run.
         """
@@ -219,23 +248,13 @@ class MVClusterDetector:
         futures = []
         for lo in range(0, n, db):
             hi = min(lo + db, n)
-            rows = get_rows(lo, hi)
-            rows = (tuple(np.ascontiguousarray(r) for r in rows)
-                    if isinstance(rows, tuple) else
-                    np.ascontiguousarray(rows))
-            if self.backend == "torch":
-                arrays = rows if isinstance(rows, tuple) else (rows,)
-                futures.append((lo, hi, op(*map(torch.from_numpy, arrays)),
-                                None))
-                continue
-            futures.append((lo, hi) + stage_and_decide(rows, self.device,
-                                                       op))
+            futures.append((lo, hi) + stage_and_decide(get_rows(lo, hi),
+                                                       self.device, op))
 
         def resolve():
             out = np.zeros((n,), bool)
             for lo, hi, motion, pending in futures:
-                if pending is not None:
-                    pending[0].synchronize()
+                wait(pending)
                 out[lo:hi] = motion.numpy()
             return out
 

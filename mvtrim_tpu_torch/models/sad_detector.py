@@ -21,7 +21,7 @@ from ..core import oracle
 from ..core.config import Config
 from ..core.types import GridGeometry
 from ..ops import sad as sad_ops
-from .mv_detector import resolve_backend, stage_and_decide
+from .mv_detector import resolve_backend, stage_and_decide, wait
 
 
 def sad_oracle_counts(luma: np.ndarray, geom: GridGeometry, *,
@@ -95,8 +95,7 @@ class SADDetector:
         in_flight = []
 
         def resolve(lo, motion, pending):
-            if pending is not None:
-                pending[0].synchronize()
+            wait(pending)
             m = motion.numpy()
             out[lo + 1 - off:lo + 1 - off + len(m)] = m
 
@@ -106,9 +105,6 @@ class SADDetector:
                 window = np.concatenate([carry[None], luma[:hi]])
             else:
                 window = np.ascontiguousarray(luma[lo - off:hi + 1 - off])
-            if self.backend == "torch":
-                resolve(lo, self._op(torch.from_numpy(window)), None)
-                continue
             if len(in_flight) == 2:
                 resolve(*in_flight.pop(0))
             in_flight.append((lo,) + stage_and_decide(window, self.device,

@@ -37,6 +37,8 @@ import time
 
 import torch
 
+from ..utils.timing import SPANS
+
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 _ROOT = os.path.dirname(_PKG_DIR)
@@ -209,7 +211,8 @@ def launch(name: str, counter, device: torch.device, *args) -> None:
     """Call the C entry point ``name`` with ``args``, then the index of
     ``device`` (a CUDA device; the C side makes it current only where it is
     not) and PyTorch's current stream on it.  Raises RuntimeError on a
-    nonzero CUDA error; else adds one to ``counter.launches``."""
+    nonzero CUDA error; else adds one to ``counter.launches`` (and, while
+    spans are recorded, to the calling thread's launches)."""
     fn = _entries.get(name)
     if fn is None:
         fn = _entries.setdefault(name, getattr(load_library(), name))
@@ -219,6 +222,8 @@ def launch(name: str, counter, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name}: kernel launch failed, CUDA error {err}")
     with _count_lock:
         counter.launches += 1
+    if SPANS.on:
+        SPANS.count_launch()
 
 
 def main(argv: list[str] | None = None) -> int:

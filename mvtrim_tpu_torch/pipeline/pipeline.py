@@ -19,8 +19,11 @@ accounting mirrors the reference's timing tree (pipeline.cpp:274-292).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import itertools
+import json
 import math
 import os
 import queue
@@ -37,7 +40,9 @@ from ..io import native
 from ..utils import logging as log
 from ..utils import system
 from ..utils.logging import format_time
-from ..utils.timing import TimingCollector, timer
+from ..utils.timing import (SPANS, TimingCollector, chrome_events,
+                            follow_profiler, start_recording, stop_recording,
+                            timer)
 from ..models.mv_detector import MVClusterDetector
 from ..models.sad_detector import SADDetector
 from ..ops.cluster import word_geometry
@@ -52,11 +57,14 @@ class ScanResult:
 
 
 class _Profile:
-    """MVT_PROFILE_DIR: a torch.profiler trace of the run, written as a
-    Chrome trace into the directory.  The profiler is process-global, so
-    in batch mode only one stream holds it; the others run unprofiled."""
+    """MVT_PROFILE_DIR: a torch.profiler trace of a batch or of one file's
+    run, held once in a process (the profiler is process-global), with
+    the program's spans (``utils.timing``) beside the host and device
+    events, written as one Chrome trace into the directory."""
 
-    def __init__(self, out_dir: str, stream_id: int):
+    _traces = itertools.count()
+
+    def __init__(self, out_dir: str):
         import torch
         from torch import profiler as tp
 
@@ -64,17 +72,47 @@ class _Profile:
         if torch.cuda.is_available():
             acts.append(tp.ProfilerActivity.CUDA)
         self.path = os.path.join(
-            out_dir, f"trace_{os.getpid()}_{max(stream_id, 0)}.json")
+            out_dir, f"trace_{os.getpid()}_{next(self._traces)}.json")
         self.prof = tp.profile(activities=acts)
         self.prof.__enter__()
+        self.owns_spans = start_recording()
 
-    def close(self, stream_id: int) -> None:
+    def close(self) -> None:
         self.prof.__exit__(None, None, None)
+        spans = stop_recording() if self.owns_spans else SPANS.recorded()
         try:
             os.makedirs(os.path.dirname(self.path), exist_ok=True)
             self.prof.export_chrome_trace(self.path)
-        except OSError as e:
-            log.warn(f"profiler trace export failed: {e}", stream_id)
+            with open(self.path) as f:
+                doc = json.load(f)
+            doc["traceEvents"].extend(chrome_events(
+                spans, int(doc.get("baseTimeNanoseconds", 0)), os.getpid()))
+            with open(self.path, "w") as f:
+                json.dump(doc, f)
+        except (OSError, ValueError) as e:
+            log.warn(f"profiler trace export failed: {e}")
+
+
+@contextlib.contextmanager
+def held_trace(profile_dir: str):
+    """Hold MVT_PROFILE_DIR's trace around a batch or a single file.
+    Without it, a ``torch.profiler`` session the caller holds turns the
+    program's spans on for the while (``timing.follow_profiler``)."""
+    profile = None
+    if profile_dir:
+        try:
+            profile = _Profile(profile_dir)
+        except RuntimeError as e:
+            log.warn(f"profiler trace unavailable ({e}); "
+                     "continuing unprofiled")
+    following = profile is None and follow_profiler()
+    try:
+        yield
+    finally:
+        if profile is not None:
+            profile.close()
+        elif following:
+            SPANS.pause()
 
 
 class ProcessingPipeline:
@@ -108,12 +146,23 @@ class ProcessingPipeline:
     # --- main entry ---
 
     def run(self) -> int:
+        """Scan, decide and cut one file; 0 on success.  A single file
+        (``stream_id < 0``) holds MVT_PROFILE_DIR's trace and takes a
+        file id of its own; a batch's stream runs under the batch's."""
+        if self.stream_id >= 0:
+            return self._run()
+        with held_trace(self.cfg.profile_dir):
+            if SPANS.on:
+                SPANS.new_file()
+            return self._run()
+
+    def _run(self) -> int:
         sid = self.stream_id
         t_total = time.perf_counter_ns()
 
         log.phase("Mapping + probing...", sid)
         try:
-            with timer("probe"):
+            with timer("probe", span="pipeline.probe"):
                 probe = native.VideoReader(self.input_path)
                 self.duration = probe.duration
                 fps = probe.fps
@@ -134,13 +183,6 @@ class ProcessingPipeline:
             # operator configured (same guard as MVT_SCAN_INPUT below)
             log.warn(f"Unknown MVT_PIPELINE={mode!r}; using auto", sid)
             mode = "auto"
-        profile = None
-        if self.cfg.profile_dir:
-            try:
-                profile = _Profile(self.cfg.profile_dir, sid)
-            except RuntimeError as e:
-                log.warn(f"profiler trace unavailable ({e}); "
-                         "continuing unprofiled", sid)
         try:
             if mode == "sad":
                 result = self._parallel_scan("sad", fps, width, height)
@@ -155,9 +197,6 @@ class ProcessingPipeline:
         except RuntimeError as e:
             log.error(f"Scan failed: {e}", sid)
             return 1
-        finally:
-            if profile is not None:
-                profile.close(sid)
 
         log.info(f"Processed {result.chunks} chunks, scanned "
                  f"{result.frames_scanned} frames, found "
@@ -165,10 +204,13 @@ class ProcessingPipeline:
 
         # --- merge + dedupe (pipeline.cpp:302-304) ---
         log.phase("Merging...", sid)
+        segment_span = SPANS.begin("pipeline.segment") if SPANS.on else None
         with timer("merge"):
             timestamps = oracle.merge_timestamps(result.motion_ts)
 
         if timestamps.size == 0:
+            if segment_span is not None:
+                SPANS.end(segment_span)
             log.warn("No motion found.", sid)
             TimingCollector.record(
                 "total_run", (time.perf_counter_ns() - t_total) // 1000)
@@ -189,6 +231,8 @@ class ProcessingPipeline:
         # --- cut-vs-copy decision (pipeline.cpp:358-404) ---
         is_cut, out_segments = oracle.decide_cut(
             segments, self.duration, self.cfg.min_savings_pct)
+        if segment_span is not None:
+            SPANS.end(segment_span, timestamps.size)
         if not is_cut:
             log.warn(
                 f"Savings too low ({int(self.saved_pct)}%). Min required: "
@@ -222,8 +266,6 @@ class ProcessingPipeline:
         JSON lines) — the metrics export the reference lacks."""
         if not self.cfg.metrics_json:
             return
-        import json
-
         phases: dict[str, int] = {}
         for name, us in TimingCollector.entries():
             phases[name] = phases.get(name, 0) + us
@@ -342,6 +384,7 @@ class ProcessingPipeline:
         # call builds the CUDA kernels (nvcc, once per source set) and makes
         # the first launch, host-CPU work that would contend with the
         # decoders
+        span = SPANS.begin("scan.warmup") if SPANS.on else None
         warm_t0 = time.perf_counter_ns()
         if kind == "sad":
             detector.scan_luma(np.zeros((2, height, width), np.uint8))
@@ -357,7 +400,10 @@ class ProcessingPipeline:
         else:
             detector.scan_votes(np.zeros((1, geom.gh, geom.gw), np.uint8))
         warmup_us = (time.perf_counter_ns() - warm_t0) // 1000
+        if span is not None:
+            SPANS.end(span)
 
+        span = SPANS.begin("scan.setup") if SPANS.on else None
         setup_t0 = time.perf_counter_ns()
 
         tasks: queue.Queue[ScanTask | None] = queue.Queue()
@@ -372,6 +418,8 @@ class ProcessingPipeline:
             tasks.put(None)
         log.info(f"Created {chunk_id} chunks", sid)
         setup_us = (time.perf_counter_ns() - setup_t0) // 1000
+        if span is not None:
+            SPANS.end(span)
 
         # bounded stream of decoded chunks keeps host memory flat
         results: queue.Queue = queue.Queue(maxsize=max(4, 2 * n_threads))
@@ -387,6 +435,8 @@ class ProcessingPipeline:
             gw=geom.gw, gh=geom.gh, y_min=geom.y_min, y_max=geom.y_max)
         if scan_input in ("bits", "words"):
             scan_args["vectors_needed"] = cfg.vectors_needed
+        # the decode workers' spans carry this file's id
+        file_id = SPANS.file() if SPANS.on else None
 
         def worker(widx: int) -> None:
             try:
@@ -420,12 +470,16 @@ class ProcessingPipeline:
                     skip_dup = 0      # duplicates to drop after a restart
                     mv_base = timings[widx].frames_with_mvs
                     while True:
+                        span = (SPANS.begin("scan.decode", file_id)
+                                if SPANS.on else None)
                         if scan_input == "mv_raw":
                             mvs, counts, pts = scan(
                                 task.start, task.end, frame_skip=frame_skip,
                                 max_frames=max_frames, max_mv=cap,
                                 timing=timings[widx], resume=resume)
                             raw_n = len(pts)
+                            if span is not None:
+                                SPANS.end(span, raw_n)
                             if raw_n and (counts < 0).any():
                                 # capacity overflow: restart the WHOLE
                                 # chunk from a fresh seek at a capacity
@@ -452,6 +506,8 @@ class ProcessingPipeline:
                                 frame_skip=frame_skip, max_frames=max_frames,
                                 timing=timings[widx], resume=resume)
                             raw_n = len(pts)
+                            if span is not None:
+                                SPANS.end(span, raw_n)
                             item = (data, pts)
                             if kind == "sad":
                                 item = ((data, luma_carry), pts)
@@ -494,7 +550,7 @@ class ProcessingPipeline:
             dispatch = {"bits": detector.scan_bits_async,
                         "words": detector.scan_words_async,
                         "grids": detector.scan_votes_async}[scan_input]
-        device_us = 0
+        dispatch_us = 0
         pending: list[tuple[np.ndarray, object]] = []
         frames_scanned = 0
         done_workers = 0
@@ -503,7 +559,10 @@ class ProcessingPipeline:
                     if (cfg.heatmap_path and kind == "mv"
                         and scan_input != "mv_raw") else None)
         while done_workers < n_threads:
+            span = SPANS.begin("scan.feeder_wait") if SPANS.on else None
             item = results.get()
+            if span is not None:
+                SPANS.end(span)
             if item is None:
                 done_workers += 1
                 continue
@@ -516,7 +575,7 @@ class ProcessingPipeline:
             except Exception as e:  # noqa: BLE001 — surfaced after drain
                 errors.append(e)
                 continue
-            device_us += (time.perf_counter_ns() - t0) // 1000
+            dispatch_us += (time.perf_counter_ns() - t0) // 1000
             frames_scanned += len(pts)
             if heat_acc is not None and scan_input == "grids":
                 heat_acc += (data >= cfg.vectors_needed).sum(
@@ -539,37 +598,41 @@ class ProcessingPipeline:
                 motion_ts.extend(pts[motion].tolist())
         except Exception as e:  # noqa: BLE001
             errors.append(e)
-        device_us += (time.perf_counter_ns() - t0) // 1000
+        resolve_us = (time.perf_counter_ns() - t0) // 1000
 
+        span = SPANS.begin("scan.join") if SPANS.on else None
         join_t0 = time.perf_counter_ns()
         for th in threads:
             th.join()
         join_us = (time.perf_counter_ns() - join_t0) // 1000
+        if span is not None:
+            SPANS.end(span)
         workers_us = (time.perf_counter_ns() - workers_t0) // 1000
 
         if errors:
             raise RuntimeError(errors[0])
 
         scan_us = (time.perf_counter_ns() - t_scan) // 1000
+        # the sub-phases, in batch mode too (only a single file prints
+        # the table); dispatch and resolve are host time: the detector's
+        # calls, and the wait for their batches
         TimingCollector.record(f"parallel_scan[{kind}]", scan_us)
-        if sid < 0:
-            tot = native.ScanTiming()
-            for tm in timings:
-                tot.seek_us += tm.seek_us
-                tot.decode_us += tm.decode_us
-                tot.analyze_us += tm.analyze_us
-            TimingCollector.record("  ├─warmup(build)", warmup_us)
-            TimingCollector.record("  ├─setup", setup_us)
-            TimingCollector.record("  ├─workers", workers_us)
-            TimingCollector.record(f"  │ ├─init ({n_threads}T)",
-                                   sum(init_us))
-            TimingCollector.record(f"  │ ├─seek ({n_threads}T)", tot.seek_us)
-            TimingCollector.record(f"  │ ├─decode ({n_threads}T)",
-                                   tot.decode_us)
-            TimingCollector.record(f"  │ └─scatter ({n_threads}T)",
-                                   tot.analyze_us)
-            TimingCollector.record("  ├─device_scan", device_us)
-            TimingCollector.record("  └─join", join_us)
+        tot = native.ScanTiming()
+        for tm in timings:
+            tot.seek_us += tm.seek_us
+            tot.decode_us += tm.decode_us
+            tot.analyze_us += tm.analyze_us
+        TimingCollector.record("  ├─warmup(build)", warmup_us)
+        TimingCollector.record("  ├─setup", setup_us)
+        TimingCollector.record("  ├─workers", workers_us)
+        TimingCollector.record(f"  │ ├─init ({n_threads}T)", sum(init_us))
+        TimingCollector.record(f"  │ ├─seek ({n_threads}T)", tot.seek_us)
+        TimingCollector.record(f"  │ ├─decode ({n_threads}T)", tot.decode_us)
+        TimingCollector.record(f"  │ └─scatter ({n_threads}T)",
+                               tot.analyze_us)
+        TimingCollector.record("  ├─dispatch", dispatch_us)
+        TimingCollector.record("  ├─resolve", resolve_us)
+        TimingCollector.record("  └─join", join_us)
 
         if heat_acc is not None and frames_scanned:
             self._write_heatmap(heat_acc, frames_scanned, geom)
@@ -581,8 +644,6 @@ class ProcessingPipeline:
     def _write_heatmap(self, counts: np.ndarray, frames: int, geom) -> None:
         """Per-video spatial activity JSON (MVT_HEATMAP names a directory
         or a file; directories get <input-basename>.heatmap.json)."""
-        import json
-
         path = self.cfg.heatmap_path
         if os.path.isdir(path):
             base = os.path.basename(self.input_path) + ".heatmap.json"
