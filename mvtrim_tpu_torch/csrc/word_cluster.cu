@@ -51,6 +51,12 @@
 // For a frame larger than one block's shared memory (8K at BLOCK_SHIFT 2:
 // 259,200 B), the C entry point picks a variant in which each warp reads
 // its frame from device memory a byte at a time.
+//
+// Two C entry points launch it: mvt_word_cluster_counts on rows already on
+// the card (cluster_bits_op, cluster_words_op), and mvt_word_cluster_batch,
+// the detector's path, on a batch staged in pinned host memory, with the
+// rows' copy in, the motion's copy out and the batch's event in the same
+// call (one call into the library a batch, not five).
 
 #include <algorithm>
 #include <atomic>
@@ -183,24 +189,20 @@ int launch(const uint8_t* rows, int batch, int gh, int pitch, int gw,
     return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Launches on `stream` of `device` (made current only where it is not) and
-// returns the CUDA error (0 = launched): the bulk copy to shared memory
-// where a frame fits in one block's, else device-memory reads.  need =
-// max(1, clusters_needed), applied by the caller.  ceil(gw / 8) <= pitch <=
+// The argument checks of both entry points: ceil(gw / 8) <= pitch <=
 // 4 * ceil(gw / 32).
-extern "C" int mvt_word_cluster_counts(const void* rows, int batch, int gh,
-                                       int pitch, int gw, int y_min,
-                                       int y_max, int need, void* counts,
-                                       void* motion, int device,
-                                       void* stream) {
+bool bad_rows(int batch, int gh, int pitch, int gw) {
     const int gww = (gw + 31) / 32;
-    if (batch < 0 || gh < 0 || gw < 1 || pitch < (gw + 7) / 8 ||
-        pitch > 4 * gww)
-        return static_cast<int>(cudaErrorInvalidValue);
-    const mvt::DeviceGuard guard(device);
-    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+    return batch < 0 || gh < 0 || gw < 1 || pitch < (gw + 7) / 8 ||
+           pitch > 4 * gww;
+}
+
+// The kernel on device `rows`, on `stream` of `device`, which the caller has
+// made current after bad_rows passed: the bulk copy to shared memory where
+// a frame fits in one block's, else device-memory reads.
+int count_rows(const void* rows, int batch, int gh, int pitch, int gw,
+               int y_min, int y_max, int need, void* counts, void* motion,
+               int device, cudaStream_t s) {
     if (batch == 0 || gh == 0) return static_cast<int>(cudaGetLastError());
     int sms = 0, optin = 0;
     cudaError_t err = mvt::device_attribute<cudaDevAttrMultiProcessorCount>(
@@ -217,7 +219,6 @@ extern "C" int mvt_word_cluster_counts(const void* rows, int batch, int gh,
     const uint8_t* r = static_cast<const uint8_t*>(rows);
     int32_t* c = static_cast<int32_t*>(counts);
     uint8_t* m = static_cast<uint8_t*>(motion);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
     const bool aligned =
         pitch % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % 4 == 0;
 #define MVT_LAUNCH(S, A)                                                 \
@@ -226,4 +227,54 @@ extern "C" int mvt_word_cluster_counts(const void* rows, int batch, int gh,
     if (!span.shared) return MVT_LAUNCH(false, false);
     return aligned ? MVT_LAUNCH(true, true) : MVT_LAUNCH(true, false);
 #undef MVT_LAUNCH
+}
+
+}  // namespace
+
+// Launches on `stream` of `device` (made current only where it is not) and
+// returns the CUDA error (0 = launched).  need = max(1, clusters_needed),
+// applied by the caller.
+extern "C" int mvt_word_cluster_counts(const void* rows, int batch, int gh,
+                                       int pitch, int gw, int y_min,
+                                       int y_max, int need, void* counts,
+                                       void* motion, int device,
+                                       void* stream) {
+    if (bad_rows(batch, gh, pitch, gw))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const mvt::DeviceGuard guard(device);
+    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+    return count_rows(rows, batch, gh, pitch, gw, y_min, y_max, need, counts,
+                      motion, device, static_cast<cudaStream_t>(stream));
+}
+
+// A staged batch in one call, on `stream` of `device`: the batch's rows
+// copied from pinned `host_rows` to device `rows`, the launch of
+// mvt_word_cluster_counts, `batch` motion bytes copied to pinned
+// `host_motion`, and `event` recorded.  The event is recorded even after a
+// failed launch, so that a wait on it covers the copy already enqueued
+// before the host rows are reused.  Returns the first CUDA error (0 = all
+// enqueued).
+extern "C" int mvt_word_cluster_batch(const void* host_rows, void* rows,
+                                      int batch, int gh, int pitch, int gw,
+                                      int y_min, int y_max, int need,
+                                      void* counts, void* motion,
+                                      void* host_motion, void* event,
+                                      int device, void* stream) {
+    if (bad_rows(batch, gh, pitch, gw) || event == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const mvt::DeviceGuard guard(device);
+    if (guard.error() != cudaSuccess) return static_cast<int>(guard.error());
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const size_t bytes = static_cast<size_t>(batch) * gh * pitch;
+    cudaError_t err =
+        cudaMemcpyAsync(rows, host_rows, bytes, cudaMemcpyHostToDevice, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int first = count_rows(rows, batch, gh, pitch, gw, y_min, y_max, need,
+                           counts, motion, device, s);
+    if (first == 0)
+        first = static_cast<int>(cudaMemcpyAsync(
+            host_motion, motion, static_cast<size_t>(batch),
+            cudaMemcpyDeviceToHost, s));
+    err = cudaEventRecord(static_cast<cudaEvent_t>(event), s);
+    return first != 0 ? first : static_cast<int>(err);
 }

@@ -6,10 +6,14 @@ fields go to the device in batches of ``device_batch`` frames, and each
 batch comes back as per-frame motion booleans.  Dispatch is asynchronous:
 ``scan_*_async`` returns a zero-argument resolver that waits for its
 batches and returns motion [N], so the pipeline's feeder overlaps device
-work with host decode.
+work with host decode.  On a card the bits and words payloads (K1) are
+staged in the card's pinned slots (``staging``); the grids and raw-MV
+payloads, and the SAD detector, go through ``stage_and_decide``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -20,6 +24,7 @@ from ..core.types import GridGeometry
 from ..ops import cluster as cluster_ops
 from ..ops import mv_vote
 from ..utils.timing import SPANS
+from . import staging
 
 BACKENDS = ("auto", "torch", "oracle")
 
@@ -52,6 +57,13 @@ def stage_and_decide(rows, device: torch.device, op):
     pending = (done, staged, on_device, motion), which the caller keeps
     until it has waited on ``done`` (``wait``): the pinned ``staged`` must
     not be reused while its copy may still run.
+
+    On a card this stages the grids and raw-MV payloads and the SAD
+    detector's windows, a fresh pinned buffer a batch: the SAD scan decides
+    each window (up to about 267 MB) on the spot and the raw-MV batches
+    change size with the MV capacity, so neither suits the reused slots of
+    the bits and words payloads (``staging``), whose batches of about 1 KB
+    a frame a file holds until its scan ends.
 
     Spans: ``detector.stage`` (value: bytes staged) and
     ``detector.enqueue`` (value: frames; its launches are the kernels').
@@ -204,7 +216,10 @@ class MVClusterDetector:
         and the cluster rule reads votes only through that comparison
         (motion_scanner.cpp:277-293).  Batches go to the card as they come:
         the kernel reads the rows at their own byte pitch, so nothing is
-        re-packed on the host.
+        re-packed on the host.  On a card each batch is staged in a slot of
+        the card's pool and enqueued by one native call
+        (``_dispatch_staged``); the slots go back once the resolver has
+        waited on them.
         """
         n = bits.shape[0]
         if n == 0:
@@ -219,6 +234,9 @@ class MVClusterDetector:
                 self.cfg.clusters_needed)
             return lambda: motion
 
+        if self.device.type == "cuda":
+            return self._dispatch_staged(bits, np.uint8, (
+                self.geom.gh, (self.geom.gw + 7) // 8))
         return self._dispatch(lambda lo, hi: bits[lo:hi], n, self._bits_op)
 
     def scan_bits(self, bits: np.ndarray) -> np.ndarray:
@@ -233,9 +251,29 @@ class MVClusterDetector:
         return cluster_ops.cluster_words_op(
             words, self.geom, self.cfg.clusters_needed)[1]
 
+    def _dispatch_staged(self, rows: np.ndarray, dtype, shape: tuple):
+        """The bits or words payload (K1) on the card: rows ``dtype`` [N,
+        *shape], each device batch staged in a slot of the card's pool and
+        enqueued by one native call (``staging.dispatch``,
+        ``cluster_ops.cluster_staged_op``); the resolver waits on each
+        slot's event and hands the slots back."""
+        if rows.dtype != dtype:
+            raise TypeError(f"rows must be {np.dtype(dtype)}, got "
+                            f"{rows.dtype}")
+        if rows.shape[1:] != shape:
+            raise ValueError(f"rows must be [N, {', '.join(map(str, shape))}]"
+                             f", got {rows.shape}")
+        pitch = rows.nbytes // (rows.shape[0] * self.geom.gh)
+        enqueue = functools.partial(
+            cluster_ops.cluster_staged_op, geom=self.geom, pitch=pitch,
+            clusters_needed=self.cfg.clusters_needed)
+        return staging.dispatch(staging.pool_for(self.device), rows,
+                                self.device_batch, enqueue)
+
     def _dispatch(self, get_rows, n: int, op):
-        """The one batch/dispatch/resolve loop, shared by the bits, words,
-        grids and raw-MV inputs.  ``get_rows(lo, hi)`` supplies each batch
+        """The batch/dispatch/resolve loop of the grids and raw-MV inputs,
+        and of the bits and words inputs on the CPU (on a card they take
+        ``_dispatch_staged``).  ``get_rows(lo, hi)`` supplies each batch
         as a numpy array, or a tuple of them, and ``op(*tensors) -> motion
         bool`` decides it.
 
@@ -264,7 +302,8 @@ class MVClusterDetector:
         """Dispatch word-layout activity masks int32 [N, gh*gww] (the
         native mvt_scan_words output — already the kernel's word layout);
         return a resolver for motion [N].  Identical decisions to
-        scan_bits_async on the same masks."""
+        scan_bits_async on the same masks, and staged on a card as they
+        are (``_dispatch_staged``)."""
         n = words.shape[0]
         if n == 0:
             return lambda: np.zeros((0,), bool)
@@ -276,6 +315,8 @@ class MVClusterDetector:
             bits = words.view(np.uint8).reshape(n, self.geom.gh, -1)[
                 :, :, :gwb]
             return self.scan_bits_async(np.ascontiguousarray(bits))
+        if self.device.type == "cuda":
+            return self._dispatch_staged(words, np.int32, (used,))
         return self._dispatch(lambda lo, hi: words[lo:hi], n, self._words_op)
 
     def scan_words(self, words: np.ndarray) -> np.ndarray:

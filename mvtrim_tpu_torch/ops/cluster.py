@@ -10,7 +10,9 @@ CUDA kernel and a plain PyTorch version of the same math:
   word c of a row is bytes 4c..4c+3, little-endian, so bit k of word c is
   cell x = 32c + k (byte j of a bits row is byte j of a words row).  A
   cell counts when it is active, has an active 4-neighbour and lies in
-  the centre window.
+  the centre window.  ``cluster_staged_op`` runs the same kernel on a
+  batch staged in pinned host memory, with both copies and the event in
+  the same native call (the detector's path on the card).
 * vote level (``cluster_map_op``, ``csrc/cluster_map.cu``): the grids
   payload, and the second half of the SAD path.  A cell of a uint8 or
   int32 grid counts when it and one of its 4-neighbours reach a runtime
@@ -206,6 +208,28 @@ def cluster_bits_op(bits: torch.Tensor, geom: GridGeometry,
         return counts, counts >= need
     raise RuntimeError(
         f"cluster_bits_op runs on cuda or cpu tensors, not {bits.device}")
+
+
+def cluster_staged_op(slot, frames: int, geom: GridGeometry, pitch: int,
+                      clusters_needed: int) -> None:
+    """One staged device batch of the bits (pitch ceil(gw/8)) or words (4
+    * gww) payload: ``frames`` frames of rows in ``slot``'s pinned host
+    rows (``models.staging.Slot``), decided by the word-domain kernel into
+    its pinned host motion.  One native call on PyTorch's current stream
+    copies the rows to the card, launches the kernel as ``cluster_bits_op``
+    does, copies the motion back and records the slot's event (counted on
+    ``cluster_words_op.launches``); the motion is there once the event
+    has completed."""
+    if not 1 <= frames <= slot.frames or \
+            frames * geom.gh * pitch > slot.rows.nbytes:
+        raise ValueError(f"{frames} frames of {geom.gh} x {pitch} bytes do "
+                         f"not fit a slot of {slot.frames} frames, "
+                         f"{slot.rows.nbytes} bytes")
+    host_rows, rows, counts, motion, host_motion, event = slot.pointers
+    _build.launch("mvt_word_cluster_batch", cluster_words_op, slot.device,
+                  host_rows, rows, frames, geom.gh, pitch, geom.gw,
+                  geom.y_min, geom.y_max, max(1, clusters_needed), counts,
+                  motion, host_motion, event)
 
 
 # --- vote level: the grids payload and the SAD grid ---

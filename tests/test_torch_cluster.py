@@ -216,7 +216,8 @@ class TestWrapper:
         assert {"word_cluster.cu", "cluster_map.cu", "sad_block.cu",
                 "mv_cluster.cu"} <= names
         assert set(_build.SIGNATURES) == {
-            "mvt_word_cluster_counts", "mvt_cluster_map_counts",
+            "mvt_word_cluster_counts", "mvt_word_cluster_batch",
+            "mvt_cluster_map_counts",
             "mvt_sad_block_grid", "mvt_mv_cluster_counts",
             "mvt_mv_cluster_scratch", "mvt_word_stream_control",
             "mvt_sad_stream_control", "mvt_mv_stream_control",

@@ -20,11 +20,14 @@ from mvtrim_tpu_torch.batch.batch import BatchProcessor
 from mvtrim_tpu_torch.core import Config
 from mvtrim_tpu_torch.core.types import GridGeometry
 from mvtrim_tpu_torch.io import native
+from mvtrim_tpu_torch.models import staging
 from mvtrim_tpu_torch.models.mv_detector import MVClusterDetector
 from mvtrim_tpu_torch.ops import cluster as cluster_ops
 from mvtrim_tpu_torch.pipeline.pipeline import ProcessingPipeline
 from mvtrim_tpu_torch.utils import timing
 from mvtrim_tpu_torch.utils.timing import SPANS, TimingCollector
+
+from torch_staging_fakes import DEVICE, FakeCard
 
 TORCH = Config(scan_backend="torch")
 SCAN = {"pipeline.probe", "scan.warmup", "scan.setup", "scan.join",
@@ -255,10 +258,47 @@ def test_chrome_events_are_on_the_trace_time_base():
     assert meta["args"]["name"] == "stream-0"
 
 
+def check_pins(spans, pool, batches):
+    """A ``detector.pin`` span a new slot, inside its ``detector.stage``,
+    valued at the host bytes pinned; one launch and one wait a batch."""
+    pins = [s for s in spans if s.name == "detector.pin"]
+    assert len(pins) == pool.slots
+    assert all(spans[s.parent].name == "detector.stage" for s in pins)
+    assert sum(s.value for s in pins) == pool.pinned_bytes
+    enqueues = [s for s in spans if s.name == "detector.enqueue"]
+    assert [s.launches for s in enqueues] == [1] * batches
+    assert len([s for s in spans if s.name == "detector.stage"]) == batches
+    assert len([s for s in spans if s.name == "detector.wait"]) == batches
+    return enqueues
+
+
+def test_pin_once_a_new_slot_never_once_a_batch(monkeypatch):
+    """The detector's card path on a stand-in card (CPU): the first scan
+    pins a slot a batch in flight, the next ones reuse them."""
+    cfg = Config(scan_backend="torch", device_batch=64)
+    det = MVClusterDetector(1920, 1080, cfg)
+    card = FakeCard(det.geom)
+    pool = card.install(monkeypatch)
+    det.device = DEVICE
+    g = det.geom
+    rng = np.random.default_rng(3)
+    chunks = [rng.integers(0, 256, (n, g.gh, (g.gw + 7) // 8),
+                           dtype=np.uint8) for n in (150, 150, 40, 128)]
+    spans, _, _ = recorded(lambda: [det.scan_bits_async(c)()
+                                    for c in chunks])
+    enqueues = check_pins(spans, pool, 3 + 3 + 1 + 2)
+    assert pool.slots == 3 and pool.free() == 3
+    assert [s.value for s in enqueues] == [64, 64, 22] * 2 + [40, 64, 64]
+    # frames_per_launch: every frame over one launch a batch
+    assert sum(s.value for s in enqueues) / sum(
+        s.launches for s in enqueues) == 468 / 9
+
+
 @pytest.mark.cuda
-def test_cuda_enqueue_counts_the_op_launches():
+def test_cuda_enqueue_counts_the_op_launches(monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(staging, "_pools", {})
     cfg = Config(scan_backend="auto", device_batch=64)
     det = MVClusterDetector(1920, 1080, cfg)
     g = det.geom
@@ -267,10 +307,12 @@ def test_cuda_enqueue_counts_the_op_launches():
     before = cluster_ops.cluster_words_op.launches
     assert timing.start_recording()
     motion = det.scan_bits_async(bits)()
+    again = det.scan_bits_async(bits)()
     spans = timing.stop_recording()
     launched = cluster_ops.cluster_words_op.launches - before
-    enqueues = [s for s in spans if s.name == "detector.enqueue"]
-    assert [s.value for s in enqueues] == [64, 64, 22]
-    assert sum(s.launches for s in enqueues) == launched == 3
-    assert len([s for s in spans if s.name == "detector.wait"]) == 3
+    enqueues = check_pins(spans, staging.pool_for(det.device), 6)
+    assert [s.value for s in enqueues] == [64, 64, 22] * 2
+    assert sum(s.launches for s in enqueues) == launched == 6
+    assert len([s for s in spans if s.name == "detector.pin"]) == 3
     assert motion.shape == (150,)
+    np.testing.assert_array_equal(again, motion)
