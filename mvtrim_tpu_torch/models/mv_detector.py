@@ -45,31 +45,40 @@ def resolve_backend(requested: str) -> str:
     return requested
 
 
-def stage_and_decide(rows, device: torch.device, op):
+def stage_and_decide(rows, device: torch.device, op, live_rows=None):
     """Stage one batch, decide it with ``op(tensor) -> motion bool`` on
     ``device``, and return (host, pending).  ``rows`` is one numpy array,
-    or a tuple of them that ``op`` takes in order.
+    or a tuple of them that ``op`` takes in order; ``live_rows`` (the
+    raw-MV payload's counts) the rows of each frame that ``op`` reads.
 
     On a CPU device the op runs on the rows in place: ``host`` is the
     motion and ``pending`` None.  On CUDA each array is staged in pinned
     host memory, copied to the card without blocking, decided, and the
     motion is copied back into a pinned ``host`` buffer behind an event;
-    pending = (done, staged, on_device, motion), which the caller keeps
-    until it has waited on ``done`` (``wait``): the pinned ``staged`` must
-    not be reused while its copy may still run.
+    pending = (done,), which the caller waits on (``wait``) before it
+    reads ``host``.  The staged and device copies are dropped here: the
+    host allocator keeps a pinned block from reuse until the event it
+    records on the block's copy has passed, and the card's caching
+    allocator orders a freed block's reuse after the work queued on its
+    stream, the current one.  So a caller that holds many batches (the
+    feeder holds a file's) holds their motion, not their rows.
 
     On a card this stages the grids and raw-MV payloads and the SAD
-    detector's windows, a fresh pinned buffer a batch: the SAD scan decides
-    each window (up to about 267 MB) on the spot and the raw-MV batches
-    change size with the MV capacity, so neither suits the reused slots of
-    the bits and words payloads (``staging``), whose batches of about 1 KB
-    a frame a file holds until its scan ends.
+    detector's windows, a block of the host allocator's cache a batch: the
+    SAD scan decides each window (up to about 267 MB) on the spot and the
+    raw-MV batches change size with the MV capacity, so neither suits the
+    reused slots of the bits and words payloads (``staging``), whose
+    batches of about 1 KB a frame a file holds until its scan ends.
 
-    Spans: ``detector.stage`` (value: bytes staged) and
-    ``detector.enqueue`` (value: frames; its launches are the kernels').
+    Spans: ``detector.stage`` (value: bytes staged), inside it
+    ``detector.mv_rows`` where ``live_rows`` is given (zero-length; value:
+    their sum), and ``detector.enqueue`` (value: frames; its launches are
+    the kernels').
     """
     cuda = device.type == "cuda"
     span = SPANS.begin("detector.stage") if SPANS.on else None
+    if span is not None and live_rows is not None:
+        SPANS.end(SPANS.begin("detector.mv_rows"), int(live_rows.sum()))
     arrays = rows if isinstance(rows, tuple) else (rows,)
     staged = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
     if cuda:
@@ -86,7 +95,7 @@ def stage_and_decide(rows, device: torch.device, op):
         host.copy_(motion, non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(device))
-        pending = (done, staged, on_device, motion)
+        pending = (done,)
     if span is not None:
         SPANS.end(span, staged[0].shape[0])
     return host, pending
@@ -174,7 +183,8 @@ class MVClusterDetector:
         truncated that frame's MV list to the M capacity, so a decision
         over it could differ from the reference — callers MUST re-scan the
         range with a larger capacity first (the pipeline's mv_raw worker
-        does, doubling until clean).  We refuse to guess.
+        restarts the chunk at once at the power of two that holds its
+        largest count).  We refuse to guess.
         """
         n = mvs.shape[0]
         if n == 0:
@@ -200,7 +210,7 @@ class MVClusterDetector:
         # the kernel takes B and M at run time: each dispatch sends exactly
         # its frames, at whatever capacity M the scan was made with
         return self._dispatch(lambda lo, hi: (mvs[lo:hi], counts[lo:hi]), n,
-                              op)
+                              op, counted=True)
 
     def scan_raw_mvs(self, mvs: np.ndarray, counts: np.ndarray) -> np.ndarray:
         """Host entry for the raw-MV path (see scan_raw_mvs_async)."""
@@ -270,24 +280,25 @@ class MVClusterDetector:
         return staging.dispatch(staging.pool_for(self.device), rows,
                                 self.device_batch, enqueue)
 
-    def _dispatch(self, get_rows, n: int, op):
+    def _dispatch(self, get_rows, n: int, op, counted: bool = False):
         """The batch/dispatch/resolve loop of the grids and raw-MV inputs,
         and of the bits and words inputs on the CPU (on a card they take
         ``_dispatch_staged``).  ``get_rows(lo, hi)`` supplies each batch
         as a numpy array, or a tuple of them, and ``op(*tensors) -> motion
-        bool`` decides it.
+        bool`` decides it; ``counted``: the second array holds the rows of
+        each frame that ``op`` reads (the raw-MV counts).
 
         Each batch goes through ``stage_and_decide``; on CUDA each future
-        holds its staging buffers until the resolver has waited on its
-        event: a pinned buffer must not be reused while a copy from it
-        may still run.
+        holds the batch's motion buffer and event until the resolver has
+        waited on it.
         """
         db = self.device_batch
         futures = []
         for lo in range(0, n, db):
             hi = min(lo + db, n)
-            futures.append((lo, hi) + stage_and_decide(get_rows(lo, hi),
-                                                       self.device, op))
+            rows = get_rows(lo, hi)
+            futures.append((lo, hi) + stage_and_decide(
+                rows, self.device, op, rows[1] if counted else None))
 
         def resolve():
             out = np.zeros((n,), bool)

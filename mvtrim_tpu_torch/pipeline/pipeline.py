@@ -493,6 +493,15 @@ class ProcessingPipeline:
                                 # re-decode counts each frame once.
                                 cap = 1 << int(np.ceil(np.log2(
                                     -counts.min())))
+                                if SPANS.on:
+                                    # zero-length: the frames decoded in
+                                    # vain (this call's and the queued ones
+                                    # the restart decodes again and drops),
+                                    # and the capacity chosen, in the name
+                                    SPANS.end(SPANS.begin("scan.mv_restart"),
+                                              raw_n + emitted)
+                                    SPANS.end(SPANS.begin(
+                                        f"scan.mv_capacity.{cap}"), cap)
                                 resume = False
                                 skip_dup = emitted
                                 timings[widx].frames_with_mvs = mv_base
