@@ -183,8 +183,11 @@ class MVClusterDetector:
         truncated that frame's MV list to the M capacity, so a decision
         over it could differ from the reference — callers MUST re-scan the
         range with a larger capacity first (the pipeline's mv_raw worker
-        restarts the chunk at once at the power of two that holds its
-        largest count).  We refuse to guess.
+        restarts the chunk at once at its largest count plus an eighth,
+        rounded up to 1,024 rows and never past the power of two that
+        holds it, at that power of two if the call stopped at its frame
+        cap, and starts the file's later chunks there).  We refuse to
+        guess.
         """
         n = mvs.shape[0]
         if n == 0:

@@ -93,6 +93,21 @@ class _Profile:
             log.warn(f"profiler trace export failed: {e}")
 
 
+def mv_restart_capacity(largest: int, unseen: bool = False) -> int:
+    """The capacity a raw-MV chunk is decoded again at once a call
+    overflowed, from the largest MV count of that call: an eighth of
+    headroom over it in steps of 1,024 rows, so a steady camera's next
+    chunks fit too, and never more than the power of two that holds it.
+    Where the call stopped at its frame cap with frames of the chunk
+    still ``unseen``, whose counts may be larger, it is that power of
+    two, so a chunk decoded in sub-calls restarts where and as often as
+    it does at the power of two alone."""
+    pow2 = 1 << (largest - 1).bit_length()
+    if unseen:
+        return pow2
+    return min(pow2, -(-(largest + largest // 8) // 1024) * 1024)
+
+
 @contextlib.contextmanager
 def held_trace(profile_dir: str):
     """Hold MVT_PROFILE_DIR's trace around a batch or a single file.
@@ -437,6 +452,12 @@ class ProcessingPipeline:
             scan_args["vectors_needed"] = cfg.vectors_needed
         # the decode workers' spans carry this file's id
         file_id = SPANS.file() if SPANS.on else None
+        # the mv_raw capacity of this file, shared by its decode workers:
+        # it starts at MVT_MV_CAPACITY and only grows, to what a restart
+        # chose, so a noisy camera's later chunks start at a capacity that
+        # holds them and a quiet one's never leave MVT_MV_CAPACITY
+        file_cap = [cfg.mv_capacity]
+        cap_lock = threading.Lock()
 
         def worker(widx: int) -> None:
             try:
@@ -461,11 +482,17 @@ class ProcessingPipeline:
                     # sub-scan into the next as its carry, so the first
                     # frame of a resumed sub-scan is compared to its real
                     # predecessor: the cap never changes decisions.
-                    # The mv_raw payload restarts the whole chunk when a
-                    # frame's MVs overflow the capacity (see below).
+                    # The mv_raw payload starts each chunk at the file's
+                    # capacity and restarts the whole chunk when a
+                    # frame's MVs overflow it (see below).
                     resume = False
                     luma_carry = None
-                    cap = cfg.mv_capacity
+                    cap = file_cap[0]
+                    if SPANS.on and cap > cfg.mv_capacity:
+                        # zero-length: the chunk starts at a capacity
+                        # carried from the file's earlier chunks
+                        SPANS.end(SPANS.begin("scan.mv_carried", file_id),
+                                  cap)
                     emitted = 0       # frames queued from this chunk
                     skip_dup = 0      # duplicates to drop after a restart
                     mv_base = timings[widx].frames_with_mvs
@@ -483,16 +510,25 @@ class ProcessingPipeline:
                             if raw_n and (counts < 0).any():
                                 # capacity overflow: restart the WHOLE
                                 # chunk from a fresh seek at a capacity
-                                # that fits every frame, so the decision is
-                                # over the complete MV lists (the detector
-                                # takes them at that capacity).  Decode
-                                # is deterministic, so the restart replays
-                                # the frames already queued from this
-                                # chunk: drop those duplicates, and rewind
-                                # the native frames_with_mvs counter so the
-                                # re-decode counts each frame once.
-                                cap = 1 << int(np.ceil(np.log2(
-                                    -counts.min())))
+                                # that fits every frame of this call with
+                                # room to spare (mv_restart_capacity; the
+                                # power of two if the call stopped at
+                                # max_frames), so the decision is over the
+                                # complete MV lists (the detector takes
+                                # them at that capacity), and raise the
+                                # file's capacity to it for the chunks
+                                # still to start.
+                                # Decode is deterministic, so the restart
+                                # replays the frames already queued from
+                                # this chunk: drop those duplicates, and
+                                # rewind the native frames_with_mvs
+                                # counter so the re-decode counts each
+                                # frame once.
+                                cap = mv_restart_capacity(
+                                    int(-counts.min()),
+                                    unseen=raw_n == max_frames)
+                                with cap_lock:
+                                    file_cap[0] = max(file_cap[0], cap)
                                 if SPANS.on:
                                     # zero-length: the frames decoded in
                                     # vain (this call's and the queued ones

@@ -4,7 +4,7 @@
 ``MVT_SCAN_BACKEND=torch``) must give the JAX mv_raw run's motion
 timestamps, savings and output bytes, and the port's own bits run's; also
 at ``MVT_MV_CAPACITY=16``, where every chunk overflows its capacity, is
-restarted at the next power of two and is decided by the raw-MV op at
+restarted at a capacity that holds it and is decided by the raw-MV op at
 that capacity.  Integer decisions: the tolerance is exact.
 """
 

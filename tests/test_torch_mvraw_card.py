@@ -2,8 +2,9 @@
 normal path, against the benchmark's plain reference
 (``trimbench/reference/mvs.py``): fixture B (1080p x264, B-frames, sensor
 noise; past 8,192 MVs in most frames) replayed through the mv_raw
-pipeline at the shipped capacity, and the detector deciding the same
-frames at every capacity that holds them.  Each test runs on the plain
+pipeline at the shipped capacity, in one chunk and in 1-s chunks that
+carry the file's capacity, and the detector deciding the same frames at
+every capacity that holds them.  Each test runs on the plain
 build here and, marked ``cuda``, on the card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_mvraw_card.py
@@ -23,6 +24,7 @@ from mvtrim_tpu_torch.core import Config
 from mvtrim_tpu_torch.io import native
 from mvtrim_tpu_torch.models.mv_detector import MVClusterDetector
 from mvtrim_tpu_torch.pipeline.pipeline import ProcessingPipeline
+from mvtrim_tpu_torch.utils import timing
 from mvtrim_tpu_torch.utils.timing import TimingCollector
 from trimbench import scene, spec
 from trimbench.reference import mvs as ref_mvs
@@ -31,7 +33,9 @@ from trimbench.reference import segments as ref_segments
 
 BACKENDS = [pytest.param("torch", id="plain"),
             pytest.param("auto", id="cuda", marks=pytest.mark.cuda)]
-CAPACITIES = (8192, 16384, 32768)
+# 26,624: what the pipeline's restart asks for at the 1080p pool's counts
+# (its largest plus an eighth, rounded up to 1,024 rows), not a power of two
+CAPACITIES = (8192, 16384, 26624, 32768)
 
 
 def backend_here(backend: str) -> str:
@@ -90,6 +94,40 @@ def test_fixture_b_through_the_mv_raw_pipeline(backend, tmp_path,
     assert got == want == fx.concat(src)
 
 
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_fixture_b_with_the_carry_through_the_mv_raw_pipeline(
+        backend, tmp_path, monkeypatch):
+    """Fixture B in 1-s chunks on two decode workers: the chunks after a
+    worker's first start at the capacity carried from the file's restarts
+    (capacities that are no power of two), and the cut is the plain
+    reference's."""
+    fx, pool, geom = fixture_b()
+    cfg = fx.config(scan_backend=backend_here(backend), scan_input="mv_raw",
+                    mv_capacity=8192, chunk_duration_sec=1.0,
+                    decode_workers=2, ffmpeg_bin=replay.FAKE_FFMPEG)
+    src = str(tmp_path / "b.mp4")
+    dump = str(tmp_path / "b.concat")
+    monkeypatch.setenv("MVT_CONCAT_DUMP", dump)
+    monkeypatch.setattr(native, "VideoReader", replay.opener(fx))
+    timing.start_recording()
+    try:
+        assert ProcessingPipeline(src, src + ".out", cfg=cfg).run() == 0
+    finally:
+        spans = timing.stop_recording()
+        TimingCollector.clear()
+    carried = [s.value for s in spans if s.name == "scan.mv_carried"]
+    assert carried and all(c % 1024 == 0 for c in carried)
+    assert any(c & (c - 1) for c in carried)
+    with open(dump) as f:
+        got = f.read()
+    knobs = knobs_of(cfg)
+    motion = ref_mvs.Decider(pool, geom, knobs)(np.arange(len(pool[1])),
+                                                None)
+    _, want = ref_segments.cut_of(fx.pts[motion], fx.meta["duration"],
+                                  os.path.abspath(src), knobs)
+    assert got == want == fx.concat(src)
+
+
 def frames_at(fields: np.ndarray, counts: np.ndarray, cap: int):
     """The payload at capacity ``cap``, as the native scan hands it over."""
     out = np.zeros((len(counts), cap, 4), np.int16)
@@ -127,8 +165,12 @@ def test_every_capacity_that_holds_a_frame_decides_it_alike(backend,
         mvs, c = frames_at(fields[fit], counts[fit], cap)
         np.testing.assert_array_equal(detector.scan_raw_mvs(mvs, c),
                                       want[fit], err_msg=f"M={cap}")
-    mvs, c = frames_at(fields, counts, CAPACITIES[-1])
-    np.testing.assert_array_equal(detector.scan_raw_mvs(mvs, c), want)
+    assert counts.max() <= 26624
+    for cap in CAPACITIES:
+        if cap >= counts.max():
+            mvs, c = frames_at(fields, counts, cap)
+            np.testing.assert_array_equal(detector.scan_raw_mvs(mvs, c),
+                                          want, err_msg=f"M={cap}")
     # a list past the capacity is refused, not guessed
     mvs, c = frames_at(fields, counts, CAPACITIES[0])
     with pytest.raises(ValueError):

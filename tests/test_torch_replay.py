@@ -194,11 +194,13 @@ class TestBothPackagesAgreeOverReplay:
     def test_fixture_b_overflows_the_default_capacity(self, tmp_path,
                                                       monkeypatch):
         """Most of B's frames overflow the default capacity, and the
-        pipeline re-decodes its chunk at 32768 before deciding it."""
+        pipeline re-decodes its one chunk at its largest count, 23,729,
+        plus an eighth (26,695) rounded up to 1,024 rows: 27,648, under
+        the 32,768 that holds it, before deciding it."""
         fx = replay.load("B")
         counts = fx.arrays["mv_counts"]
         assert (counts > Config().mv_capacity).sum() >= len(counts) // 2
-        assert counts.max() > 16384
+        assert counts.max() == 23729 and fx.meta["duration"] < 30
         caps = []
 
         class Traced(replay.ReplayReader):
@@ -212,7 +214,7 @@ class TestBothPackagesAgreeOverReplay:
         assert ProcessingPipeline(src, src + ".out", cfg=fx.config(
             scan_backend="torch", scan_input="mv_raw",
             ffmpeg_bin=replay.FAKE_FFMPEG)).run() == 0
-        assert sorted(set(caps)) == [8192, 32768]
+        assert sorted(set(caps)) == [8192, 27648]
 
 
 class TestKnobMismatchRaises:
