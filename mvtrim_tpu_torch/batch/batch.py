@@ -26,8 +26,8 @@ from ..core.config import Config
 from ..cut.executor import CutQueue
 from ..utils import logging as log
 from ..utils import system
-from ..utils.timing import SPANS, TimingCollector
-from ..pipeline.pipeline import ProcessingPipeline, held_trace
+from ..utils.timing import SPANS, TimingCollector, held_trace
+from ..pipeline.pipeline import ProcessingPipeline
 
 VIDEO_EXTENSIONS = {".mp4", ".mkv", ".ts", ".mov", ".avi"}  # main.cpp:68-69
 

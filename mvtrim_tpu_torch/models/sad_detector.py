@@ -21,7 +21,7 @@ from ..core import oracle
 from ..core.config import Config
 from ..core.types import GridGeometry
 from ..ops import sad as sad_ops
-from .mv_detector import resolve_backend, stage_and_decide, wait
+from .staging import placement, stage_and_decide, wait
 
 
 def sad_oracle_counts(luma: np.ndarray, geom: GridGeometry, *,
@@ -53,15 +53,8 @@ class SADDetector:
         self.geom = GridGeometry.build(width, height, self.cfg)
         self.width = width
         self.height = height
-        backend = resolve_backend(self.cfg.scan_backend)
+        backend, self.device = placement(self.cfg.scan_backend, device)
         self.backend = "torch" if backend == "oracle" else backend
-        # device= pins this detector to one card (batch mode); the plain
-        # versions always run on the CPU
-        if self.backend == "cuda":
-            self.device = torch.device(device if device is not None
-                                       else "cuda")
-        else:
-            self.device = torch.device("cpu")
         # device batch for luma is small: 1080p luma is ~2MB/frame
         self.device_batch = min(64, max(8, self.cfg.device_batch // 8))
 

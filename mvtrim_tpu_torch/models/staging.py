@@ -1,32 +1,27 @@
-"""Staging slots of the K1 payloads (bits and words) on a CUDA card.
+"""How a detector's batches reach the device: its backend and device
+(``placement``), and the staging of each batch.
 
-A device batch of the bits or words payload is copied into a slot's pinned
-host rows (span ``detector.stage``) and handed to one native call
-(``cluster_ops.cluster_staged_op``, span ``detector.enqueue``) that copies
-the rows to the slot's device rows, launches K1, copies the motion back
-into the slot's pinned motion and records the slot's event, all on
-PyTorch's current stream.  The resolver waits on each slot's event (span
-``detector.wait``), copies the motion out and hands the slots back.  So a
-batch costs one copy on the host and one call into the library, and
-nothing is allocated or pinned once the pool holds as many slots as there
-are batches in flight.
-
-One pool a card, shared by the streams under a lock.  It outlives the
-detectors (one a file), so it lives here, keyed by device.  A slot is
-pinned for ``device_batch`` frames; the feeder takes a free slot that
-fits, or pins a new one (span ``detector.pin``), and never waits for a
-slot in flight.  A slot goes back only after its batch was waited on: by
-the resolver, by its error path, or when a resolver is dropped uncalled.
-
-The SAD detector and the grids and raw-MV payloads keep
-``mv_detector.stage_and_decide``: the SAD scan decides each window (up to
-about 267 MB) on the spot, and the raw-MV batches change size with the MV
-capacity, so neither fits slots sized for K1's batches of about 1 KB a
-frame that a file holds until its scan ends.
+On a CUDA card a batch of the bits or words payload (K1) is copied into a
+slot's pinned host rows (span ``detector.stage``) and handed to one native
+call (``cluster_ops.cluster_staged_op``, span ``detector.enqueue``) that
+copies the rows to the card, launches K1, copies the motion back into the
+slot's pinned motion and records the slot's event on PyTorch's current
+stream (``dispatch``); the resolver waits on the events (span
+``detector.wait``) and hands the slots back.  One pool a card, shared by
+the streams under a lock; a slot is pinned for ``device_batch`` frames
+when no free one fits (span ``detector.pin``), and goes back once its
+batch was waited on (by the resolver, its error path, or the resolver's
+finalizer), so nothing is pinned once the pool holds the batches in
+flight.  Every other batch goes through ``stage_and_decide``: every
+payload on the CPU, and on a card the grids and raw-MV batches and the
+SAD windows, whose sizes (up to about 267 MB, decided on the spot) and
+capacities vary, so they do not fit slots sized for K1's batches of
+about 1 KB a frame that a file holds until its scan ends.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import threading
 import weakref
@@ -37,7 +32,94 @@ import torch
 
 from ..utils.timing import SPANS
 
+BACKENDS = ("auto", "torch", "oracle")
 
+
+def resolve_backend(requested: str) -> str:
+    """auto -> cuda, which needs a CUDA device; torch (the plain PyTorch
+    build on the CPU) and oracle (the NumPy reference) pass through."""
+    if requested not in BACKENDS:
+        raise RuntimeError(
+            f"MVT_SCAN_BACKEND={requested!r} is not one of "
+            f"{', '.join(BACKENDS)}")
+    if requested == "auto":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "MVT_SCAN_BACKEND=auto needs a CUDA device and none is "
+                "available; set MVT_SCAN_BACKEND=torch for the CPU build")
+        return "cuda"
+    return requested
+
+
+def placement(requested: str, device=None) -> tuple[str, torch.device]:
+    """A detector's backend (``resolve_backend``) and device: under cuda
+    the card ``device`` names (batch mode spreads streams over the cards),
+    else the current one; the CPU for the other backends."""
+    backend = resolve_backend(requested)
+    if backend == "cuda":
+        return backend, torch.device(device if device is not None
+                                     else "cuda")
+    return backend, torch.device("cpu")
+
+
+def stage_and_decide(rows, device: torch.device, op, live_rows=None):
+    """Stage one batch, decide it with ``op(tensor) -> motion bool`` on
+    ``device``, and return (host, pending).  ``rows`` is one numpy array,
+    or a tuple of them that ``op`` takes in order; ``live_rows`` (the
+    raw-MV payload's counts) the rows of each frame that ``op`` reads.
+
+    On a CPU device the op runs on the rows in place: ``host`` is the
+    motion and ``pending`` None.  On CUDA each array is pinned, copied to
+    the card without blocking and decided, and the motion is copied back
+    into a pinned ``host`` behind an event, pending = (done,), for
+    ``wait``.  The staged and device copies are dropped here (both
+    allocators keep a freed block until the work queued on it is done),
+    so a caller holding many batches holds their motion, not their rows.
+
+    Spans: ``detector.stage`` (value: bytes staged), inside it
+    ``detector.mv_rows`` where ``live_rows`` is given (zero-length; value:
+    their sum), and ``detector.enqueue`` (value: frames; its launches are
+    the kernels').
+    """
+    cuda = device.type == "cuda"
+    span = SPANS.begin("detector.stage") if SPANS.on else None
+    if span is not None and live_rows is not None:
+        SPANS.end(SPANS.begin("detector.mv_rows"), int(live_rows.sum()))
+    arrays = rows if isinstance(rows, tuple) else (rows,)
+    staged = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
+    if cuda:
+        staged = tuple(t.pin_memory() for t in staged)
+    if span is not None:
+        SPANS.end(span, sum(t.nbytes for t in staged))
+    span = SPANS.begin("detector.enqueue") if SPANS.on else None
+    if not cuda:
+        host, pending = op(*staged), None
+    else:
+        on_device = tuple(t.to(device, non_blocking=True) for t in staged)
+        motion = op(*on_device)
+        host = torch.empty(motion.shape, dtype=torch.bool, pin_memory=True)
+        host.copy_(motion, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(device))
+        pending = (done,)
+    if span is not None:
+        SPANS.end(span, staged[0].shape[0])
+    return host, pending
+
+
+def wait(pending) -> None:
+    """Wait for a batch that ``stage_and_decide`` left pending (span
+    ``detector.wait``); a batch decided on the CPU has nothing to wait
+    for."""
+    if pending is None:
+        return
+    span = SPANS.begin("detector.wait") if SPANS.on else None
+    pending[0].synchronize()
+    if span is not None:
+        SPANS.end(span)
+
+
+@dataclasses.dataclass(eq=False, slots=True)
 class Slot:
     """One device batch's staging, pinned once and reused.
 
@@ -49,18 +131,13 @@ class Slot:
     pointers alive.
     """
 
-    __slots__ = ("frames", "rows", "motion", "device", "pointers", "event",
-                 "owner")
-
-    def __init__(self, frames: int, rows: np.ndarray, motion: np.ndarray,
-                 device: torch.device, pointers: tuple, event, owner):
-        self.frames = frames
-        self.rows = rows
-        self.motion = motion
-        self.device = device
-        self.pointers = pointers
-        self.event = event
-        self.owner = owner
+    frames: int
+    rows: np.ndarray
+    motion: np.ndarray
+    device: torch.device
+    pointers: tuple
+    event: object
+    owner: object
 
 
 class StagingPool:

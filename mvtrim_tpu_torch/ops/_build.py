@@ -62,11 +62,9 @@ SIGNATURES = {
     # device, stream
     "mvt_word_cluster_counts": [_P] + [_I] * 7 + [_P, _P, _I, _P],
     # host_rows, rows, batch, gh, pitch, gw, y_min, y_max, need, counts,
-    # motion, host_motion, event, device, stream: a staged batch of the bits
-    # or words payload (models/staging.py) in one call, the rows' copy to the
-    # card, the kernel of mvt_word_cluster_counts, the motion's copy back
-    # and the event; the SAD, grids and raw-MV batches are staged by
-    # PyTorch's own calls (mv_detector.stage_and_decide)
+    # motion, host_motion, event, device, stream: a staged batch
+    # (models/staging.py) in one call, the rows' copy to the card, the
+    # kernel of mvt_word_cluster_counts, the motion's copy back and the event
     "mvt_word_cluster_batch": [_P, _P] + [_I] * 7 + [_P] * 4 + [_I, _P],
     # votes, is_int32, batch, gh, gw, y_min, y_max, thr, need, counts,
     # motion, device, stream

@@ -26,7 +26,7 @@ import torch
 
 from ..core.config import Config
 from ..core.types import GridGeometry
-from ..models.mv_detector import resolve_backend
+from ..models.staging import resolve_backend
 from ..ops import cluster as cluster_ops
 from ..ops import sad as sad_ops
 from ..ops.sweep import sad_sweep_op, vote_sweep_op

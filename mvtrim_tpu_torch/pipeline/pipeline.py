@@ -1,28 +1,22 @@
-"""Single-video processing pipeline.
-
-The reference's per-video orchestration (pipeline.cpp:89-415) on a
-host-decode / device-analyze split, as in ``mvtrim_tpu/pipeline``:
-
-  probe -> chunked parallel host decode (threads over a shared task queue,
-  each with its own mmap'd decoder; ctypes releases the GIL) -> per-chunk
-  payloads stream through the detector (MVClusterDetector on the CUDA
-  word-cluster, cluster-map or fused raw-MV kernel; SADDetector on the
-  block-SAD and cluster-map kernels) -> motion timestamps -> merge
-  (sort+unique) -> gap segmentation with padding -> savings decision ->
-  lossless cut (direct or via CutQueue).
-
-This port runs the MV scan over the ``bits``, ``words``, ``grids`` and
-``mv_raw`` payloads and the pixel-domain SAD scan (``MVT_PIPELINE=sad``,
-and the ``auto`` fallback when no frame carries MV side data).  Phase
-accounting mirrors the reference's timing tree (pipeline.cpp:274-292).
+"""Single-video processing pipeline: the reference's per-video
+orchestration (pipeline.cpp:89-415) on a host-decode / device-analyze
+split.  Probe -> chunked parallel host decode (threads over a shared task
+queue, a reader each; ctypes releases the GIL) -> each payload's parts
+through the detector (``payloads``: bits, words, grids or mv_raw to
+MVClusterDetector; the luma to SADDetector under MVT_PIPELINE=sad and
+the auto fallback where no frame carries MV side data) -> motion
+timestamps -> merge -> gap segmentation with padding -> savings decision
+-> lossless cut (direct or via CutQueue).  Phase accounting mirrors the
+reference's timing tree (pipeline.cpp:274-292).  The scan's spans:
+"scan.warmup", "scan.setup", "scan.feeder_wait" and "scan.join" here;
+"scan.decode", "scan.mv_carried", "scan.mv_restart" and
+"scan.mv_capacity.<M>" in the payloads' chunk decode.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
-import itertools
 import json
 import math
 import os
@@ -40,12 +34,8 @@ from ..io import native
 from ..utils import logging as log
 from ..utils import system
 from ..utils.logging import format_time
-from ..utils.timing import (SPANS, TimingCollector, chrome_events,
-                            follow_profiler, start_recording, stop_recording,
-                            timer)
-from ..models.mv_detector import MVClusterDetector
-from ..models.sad_detector import SADDetector
-from ..ops.cluster import word_geometry
+from ..utils.timing import SPANS, TimingCollector, held_trace, timer
+from . import payloads
 
 
 @dataclasses.dataclass
@@ -54,80 +44,6 @@ class ScanResult:
     frames_scanned: int
     frames_with_mvs: int
     chunks: int
-
-
-class _Profile:
-    """MVT_PROFILE_DIR: a torch.profiler trace of a batch or of one file's
-    run, held once in a process (the profiler is process-global), with
-    the program's spans (``utils.timing``) beside the host and device
-    events, written as one Chrome trace into the directory."""
-
-    _traces = itertools.count()
-
-    def __init__(self, out_dir: str):
-        import torch
-        from torch import profiler as tp
-
-        acts = [tp.ProfilerActivity.CPU]
-        if torch.cuda.is_available():
-            acts.append(tp.ProfilerActivity.CUDA)
-        self.path = os.path.join(
-            out_dir, f"trace_{os.getpid()}_{next(self._traces)}.json")
-        self.prof = tp.profile(activities=acts)
-        self.prof.__enter__()
-        self.owns_spans = start_recording()
-
-    def close(self) -> None:
-        self.prof.__exit__(None, None, None)
-        spans = stop_recording() if self.owns_spans else SPANS.recorded()
-        try:
-            os.makedirs(os.path.dirname(self.path), exist_ok=True)
-            self.prof.export_chrome_trace(self.path)
-            with open(self.path) as f:
-                doc = json.load(f)
-            doc["traceEvents"].extend(chrome_events(
-                spans, int(doc.get("baseTimeNanoseconds", 0)), os.getpid()))
-            with open(self.path, "w") as f:
-                json.dump(doc, f)
-        except (OSError, ValueError) as e:
-            log.warn(f"profiler trace export failed: {e}")
-
-
-def mv_restart_capacity(largest: int, unseen: bool = False) -> int:
-    """The capacity a raw-MV chunk is decoded again at once a call
-    overflowed, from the largest MV count of that call: an eighth of
-    headroom over it in steps of 1,024 rows, so a steady camera's next
-    chunks fit too, and never more than the power of two that holds it.
-    Where the call stopped at its frame cap with frames of the chunk
-    still ``unseen``, whose counts may be larger, it is that power of
-    two, so a chunk decoded in sub-calls restarts where and as often as
-    it does at the power of two alone."""
-    pow2 = 1 << (largest - 1).bit_length()
-    if unseen:
-        return pow2
-    return min(pow2, -(-(largest + largest // 8) // 1024) * 1024)
-
-
-@contextlib.contextmanager
-def held_trace(profile_dir: str):
-    """Hold MVT_PROFILE_DIR's trace around a batch or a single file.
-    Without it, a ``torch.profiler`` session the caller holds turns the
-    program's spans on for the while (``timing.follow_profiler``)."""
-    profile = None
-    if profile_dir:
-        try:
-            profile = _Profile(profile_dir)
-        except RuntimeError as e:
-            log.warn(f"profiler trace unavailable ({e}); "
-                     "continuing unprofiled")
-    following = profile is None and follow_profiler()
-    try:
-        yield
-    finally:
-        if profile is not None:
-            profile.close()
-        elif following:
-            SPANS.pause()
 
 
 class ProcessingPipeline:
@@ -193,9 +109,8 @@ class ProcessingPipeline:
 
         mode = self.cfg.pipeline_mode
         if mode not in ("mv", "sad", "auto"):
-            # a typo ("SAD", "sda") would otherwise silently select the MV
-            # scan WITHOUT the auto-SAD fallback — the opposite of what the
-            # operator configured (same guard as MVT_SCAN_INPUT below)
+            # a typo ("SAD", "sda") would otherwise select the MV scan
+            # WITHOUT the auto-SAD fallback (payloads.choose guards likewise)
             log.warn(f"Unknown MVT_PIPELINE={mode!r}; using auto", sid)
             mode = "auto"
         try:
@@ -227,12 +142,7 @@ class ProcessingPipeline:
             if segment_span is not None:
                 SPANS.end(segment_span)
             log.warn("No motion found.", sid)
-            TimingCollector.record(
-                "total_run", (time.perf_counter_ns() - t_total) // 1000)
-            if sid < 0:
-                TimingCollector.print_summary()
-            self._emit_metrics(result, 0, None, t_total)
-            return 0
+            return self._finish(result, 0, None, t_total)
 
         # --- segmentation (pipeline.cpp:321-356) ---
         with timer("segmentation"):
@@ -267,20 +177,21 @@ class ProcessingPipeline:
                 execute_cut(self.input_path, self.output_path, out_segments,
                             sid, self.cfg)
 
+        return self._finish(result, int(timestamps.size), is_cut, t_total)
+
+    def _finish(self, result: ScanResult, motion_frames: int,
+                is_cut: bool | None, t_total: int) -> int:
+        """Record the total, print a single file's timing table and a
+        decided run's cut summary, and append the per-video metrics
+        (MVT_METRICS_JSON, JSON lines; the reference has none); 0."""
         TimingCollector.record(
             "total_run", (time.perf_counter_ns() - t_total) // 1000)
-        if sid < 0:
+        if self.stream_id < 0:
             TimingCollector.print_summary()
-        self.print_cut_summary()
-        self._emit_metrics(result, int(timestamps.size), is_cut, t_total)
-        return 0
-
-    def _emit_metrics(self, result: ScanResult, motion_frames: int,
-                      is_cut: bool | None, t_total: int) -> None:
-        """Structured per-video metrics (MVT_METRICS_JSON, append-only
-        JSON lines) — the metrics export the reference lacks."""
+        if is_cut is not None:
+            self.print_cut_summary()
         if not self.cfg.metrics_json:
-            return
+            return 0
         phases: dict[str, int] = {}
         for name, us in TimingCollector.entries():
             phases[name] = phases.get(name, 0) + us
@@ -304,6 +215,7 @@ class ProcessingPipeline:
                 f.write(json.dumps(rec) + "\n")
         except OSError as e:
             log.warn(f"metrics export failed: {e}", self.stream_id)
+        return 0
 
     # --- scan phase (pipeline.cpp:127-295) ---
 
@@ -311,89 +223,25 @@ class ProcessingPipeline:
         """Thread count rules (pipeline.cpp:129-143): explicit per-stream
         count in batch mode, else max(2, cgroup-aware cpu limit), always
         capped by the chunk count."""
-        if self.num_threads > 0:
-            n = self.num_threads
-        else:
-            n = max(2, system.detect_cpu_limit())
-        if self.cfg.decode_workers > 0:
-            n = self.cfg.decode_workers
+        n = (self.cfg.decode_workers if self.cfg.decode_workers > 0
+             else self.num_threads if self.num_threads > 0
+             else max(2, system.detect_cpu_limit()))
         return max(1, min(n, num_chunks))
-
-    def _scan_input(self) -> str:
-        """The MV payload (MVT_SCAN_INPUT):
-          bits  — host-thresholded activity masks, bit-packed (default)
-          words — the same masks emitted natively in the kernel's int32
-                  word layout: the per-batch repack moves into the
-                  GIL-released decode workers
-          grids — uint8 vote grids, thresholded on the device by the
-                  cluster-map kernel
-          mv_raw — raw MV fields, thresholded, scattered and clustered on
-                  the device by the fused raw-MV kernel (for hosts whose
-                  CPU cannot keep up with the vote scatter)
-        """
-        sid = self.stream_id
-        scan_input = self.cfg.scan_input
-        if scan_input not in ("bits", "words", "grids", "mv_raw"):
-            log.warn(f"Unknown MVT_SCAN_INPUT={scan_input!r}; using bits",
-                     sid)
-            return "bits"
-        if scan_input == "grids" and self.cfg.vectors_needed == 0:
-            # raw vote grids cannot tell "no MV side data" from "side data
-            # but every MV filtered" at vec_need 0; the packed masks can,
-            # and decide identically otherwise
-            log.info("VECTORS_NEEDED=0: vote grids are ambiguous for "
-                     "MV-less frames; using the bits payload "
-                     "(identical decisions)", sid)
-            return "bits"
-        if scan_input == "mv_raw" and self.cfg.heatmap_path:
-            log.warn("MVT_HEATMAP is unavailable with MVT_SCAN_INPUT="
-                     "mv_raw (no per-cell grids on host); skipping heatmap",
-                     sid)
-        return scan_input
 
     def _parallel_scan(self, kind: str, fps: float, width: int,
                        height: int) -> ScanResult:
-        """Chunked parallel decode + batched device analysis.
-
-        kind: 'mv' (MV payload -> cluster kernel) or 'sad' (luma -> block
-        SAD kernel -> cluster-map kernel).
-        """
-        sid = self.stream_id
-        cfg = self.cfg
-        if kind == "mv":
-            scan_input = self._scan_input()
-            detector = MVClusterDetector(width, height, cfg,
-                                         device=self.device)
-        else:
-            scan_input = "luma"
-            detector = SADDetector(width, height, cfg, device=self.device)
-        geom = detector.geom
-        frame_skip = cfg.frame_skip(fps)
-
+        """Chunked parallel decode + batched device analysis of ``kind``
+        'mv' (an MV payload -> cluster kernels) or 'sad' (luma -> block SAD
+        and cluster-map kernels); the payload decodes and dispatches."""
+        sid, cfg = self.stream_id, self.cfg
         num_chunks = max(1, math.ceil(self.duration /
                                       cfg.chunk_duration_sec))
         n_threads = self._scan_thread_count(num_chunks)
-        # luma chunks are large (H*W bytes/frame); cap frames per scan call
-        if cfg.chunk_frames_cap > 0:
-            chunk_frames_cap = cfg.chunk_frames_cap
-        elif kind == "sad":
-            chunk_frames_cap = max(
-                16, (512 * 1024 * 1024) // max(1, width * height)
-                // max(1, n_threads))
-        else:
-            chunk_frames_cap = 1 << 30
-
-        log.phase(
-            f"Parallel {'SAD ' if kind == 'sad' else ''}Scan "
-            f"({n_threads} threads, {cfg.chunk_duration_sec:.0f}s chunks)...",
-            sid)
-
+        payload = payloads.choose(kind, cfg, sid)(
+            cfg, width, height, fps, n_threads, device=self.device)
+        log.phase(f"{payload.label} ({n_threads} threads, "
+                  f"{cfg.chunk_duration_sec:.0f}s chunks)...", sid)
         t_scan = time.perf_counter_ns()
-
-        # analyzed-frame cap per native scan call
-        max_frames = min(
-            chunk_frames_cap,
-            int(math.ceil(cfg.chunk_duration_sec * max(fps, 1.0))) + 64)
 
         # Warm the device path BEFORE spawning decode threads: the first
         # call builds the CUDA kernels (nvcc, once per source set) and makes
@@ -401,34 +249,19 @@ class ProcessingPipeline:
         # decoders
         span = SPANS.begin("scan.warmup") if SPANS.on else None
         warm_t0 = time.perf_counter_ns()
-        if kind == "sad":
-            detector.scan_luma(np.zeros((2, height, width), np.uint8))
-        elif scan_input == "bits":
-            detector.scan_bits(
-                np.zeros((1, geom.gh, (geom.gw + 7) // 8), np.uint8))
-        elif scan_input == "words":
-            detector.scan_words(
-                np.zeros((1, word_geometry(geom)[1]), np.int32))
-        elif scan_input == "mv_raw":
-            detector.scan_raw_mvs(np.zeros((1, cfg.mv_capacity, 4), np.int16),
-                                  np.zeros((1,), np.int32))
-        else:
-            detector.scan_votes(np.zeros((1, geom.gh, geom.gw), np.uint8))
+        payload.warm_up()
         warmup_us = (time.perf_counter_ns() - warm_t0) // 1000
         if span is not None:
             SPANS.end(span)
 
         span = SPANS.begin("scan.setup") if SPANS.on else None
         setup_t0 = time.perf_counter_ns()
-
         tasks: queue.Queue[ScanTask | None] = queue.Queue()
-        chunk_id = 0
-        t = 0.0
+        chunk_id, t = 0, 0.0
         while t < self.duration:
-            end = min(t + cfg.chunk_duration_sec, self.duration)
-            tasks.put(ScanTask(t, end, chunk_id))
-            chunk_id += 1
-            t += cfg.chunk_duration_sec
+            tasks.put(ScanTask(t, min(t + cfg.chunk_duration_sec,
+                                      self.duration), chunk_id))
+            chunk_id, t = chunk_id + 1, t + cfg.chunk_duration_sec
         for _ in range(n_threads):
             tasks.put(None)
         log.info(f"Created {chunk_id} chunks", sid)
@@ -441,131 +274,18 @@ class ProcessingPipeline:
         init_us = [0] * n_threads
         timings = [native.ScanTiming() for _ in range(n_threads)]
         errors: list[Exception] = []
-
-        reader_mode = (native.MVT_MODE_MV if kind == "mv"
-                       else native.MVT_MODE_LUMA)
-        # native scan_<payload> arguments beyond the shared ones
-        scan_args = {} if kind == "sad" else dict(
-            threshold_sq=cfg.mv_threshold_sq, block_shift=cfg.block_shift,
-            gw=geom.gw, gh=geom.gh, y_min=geom.y_min, y_max=geom.y_max)
-        if scan_input in ("bits", "words"):
-            scan_args["vectors_needed"] = cfg.vectors_needed
         # the decode workers' spans carry this file's id
         file_id = SPANS.file() if SPANS.on else None
-        # the mv_raw capacity of this file, shared by its decode workers:
-        # it starts at MVT_MV_CAPACITY and only grows, to what a restart
-        # chose, so a noisy camera's later chunks start at a capacity that
-        # holds them and a quiet one's never leave MVT_MV_CAPACITY
-        file_cap = [cfg.mv_capacity]
-        cap_lock = threading.Lock()
 
         def worker(widx: int) -> None:
             try:
                 t0 = time.perf_counter_ns()
-                reader = self.open_reader(reader_mode)
+                reader = self.open_reader(payload.mode)
                 init_us[widx] = (time.perf_counter_ns() - t0) // 1000
-                scan = getattr(reader, "scan_mvs" if scan_input == "mv_raw"
-                               else f"scan_{scan_input}")
-                while True:
-                    task = tasks.get()
-                    if task is None:
-                        break
-                    # resume when the frame cap saturates (VFR bursts can
-                    # exceed the probed-fps estimate; dropping the chunk
-                    # tail would lose motion).  resume=True continues the
-                    # decode from the exact stream position with the
-                    # frame-skip counter carried on the handle, so a capped
-                    # chunk analyzes the same frame set as the reference's
-                    # uncapped scan (motion_scanner.cpp:314,356-357).
-                    # The luma path also sub-chunks when its memory cap
-                    # binds, and threads the last analyzed frame of each
-                    # sub-scan into the next as its carry, so the first
-                    # frame of a resumed sub-scan is compared to its real
-                    # predecessor: the cap never changes decisions.
-                    # The mv_raw payload starts each chunk at the file's
-                    # capacity and restarts the whole chunk when a
-                    # frame's MVs overflow it (see below).
-                    resume = False
-                    luma_carry = None
-                    cap = file_cap[0]
-                    if SPANS.on and cap > cfg.mv_capacity:
-                        # zero-length: the chunk starts at a capacity
-                        # carried from the file's earlier chunks
-                        SPANS.end(SPANS.begin("scan.mv_carried", file_id),
-                                  cap)
-                    emitted = 0       # frames queued from this chunk
-                    skip_dup = 0      # duplicates to drop after a restart
-                    mv_base = timings[widx].frames_with_mvs
-                    while True:
-                        span = (SPANS.begin("scan.decode", file_id)
-                                if SPANS.on else None)
-                        if scan_input == "mv_raw":
-                            mvs, counts, pts = scan(
-                                task.start, task.end, frame_skip=frame_skip,
-                                max_frames=max_frames, max_mv=cap,
-                                timing=timings[widx], resume=resume)
-                            raw_n = len(pts)
-                            if span is not None:
-                                SPANS.end(span, raw_n)
-                            if raw_n and (counts < 0).any():
-                                # capacity overflow: restart the WHOLE
-                                # chunk from a fresh seek at a capacity
-                                # that fits every frame of this call with
-                                # room to spare (mv_restart_capacity; the
-                                # power of two if the call stopped at
-                                # max_frames), so the decision is over the
-                                # complete MV lists (the detector takes
-                                # them at that capacity), and raise the
-                                # file's capacity to it for the chunks
-                                # still to start.
-                                # Decode is deterministic, so the restart
-                                # replays the frames already queued from
-                                # this chunk: drop those duplicates, and
-                                # rewind the native frames_with_mvs
-                                # counter so the re-decode counts each
-                                # frame once.
-                                cap = mv_restart_capacity(
-                                    int(-counts.min()),
-                                    unseen=raw_n == max_frames)
-                                with cap_lock:
-                                    file_cap[0] = max(file_cap[0], cap)
-                                if SPANS.on:
-                                    # zero-length: the frames decoded in
-                                    # vain (this call's and the queued ones
-                                    # the restart decodes again and drops),
-                                    # and the capacity chosen, in the name
-                                    SPANS.end(SPANS.begin("scan.mv_restart"),
-                                              raw_n + emitted)
-                                    SPANS.end(SPANS.begin(
-                                        f"scan.mv_capacity.{cap}"), cap)
-                                resume = False
-                                skip_dup = emitted
-                                timings[widx].frames_with_mvs = mv_base
-                                continue
-                            k = min(skip_dup, raw_n)
-                            skip_dup -= k
-                            item = ((mvs[k:], counts[k:]), pts[k:])
-                        else:
-                            data, pts = scan(
-                                task.start, task.end, **scan_args,
-                                frame_skip=frame_skip, max_frames=max_frames,
-                                timing=timings[widx], resume=resume)
-                            raw_n = len(pts)
-                            if span is not None:
-                                SPANS.end(span, raw_n)
-                            item = (data, pts)
-                            if kind == "sad":
-                                item = ((data, luma_carry), pts)
-                                if len(data):
-                                    luma_carry = data[-1].copy()
-                        if raw_n == 0:
-                            break
-                        if len(item[1]):  # empty after a duplicate drop
-                            emitted += len(item[1])
-                            results.put(item)
-                        if raw_n < max_frames:
-                            break
-                        resume = True
+                scan = getattr(reader, payload.method)
+                for task in iter(tasks.get, None):
+                    payload.decode(scan, task, results.put, timings[widx],
+                                   file_id)
                 reader.close()
             except Exception as e:  # noqa: BLE001 — surfaced after join
                 errors.append(e)
@@ -579,71 +299,8 @@ class ProcessingPipeline:
         for th in threads:
             th.start()
 
-        # device feeder: consume chunks, dispatch asynchronously, resolve
-        # at the end so H2D+compute overlap decode.  Keep draining even
-        # after a detector failure: decode workers block on the bounded
-        # queue otherwise and the process never exits.
-        if kind == "sad":
-            def dispatch(data):
-                # the SAD scan decides each sub-scan on the spot
-                motion = detector.scan_luma(data[0], carry=data[1])
-                return lambda: motion
-        elif scan_input == "mv_raw":
-            def dispatch(data):
-                return detector.scan_raw_mvs_async(*data)
-        else:
-            dispatch = {"bits": detector.scan_bits_async,
-                        "words": detector.scan_words_async,
-                        "grids": detector.scan_votes_async}[scan_input]
-        dispatch_us = 0
-        pending: list[tuple[np.ndarray, object]] = []
-        frames_scanned = 0
-        done_workers = 0
-        # optional spatial analytics riding the already-decoded masks
-        heat_acc = (np.zeros((geom.gh, geom.gw), np.int64)
-                    if (cfg.heatmap_path and kind == "mv"
-                        and scan_input != "mv_raw") else None)
-        while done_workers < n_threads:
-            span = SPANS.begin("scan.feeder_wait") if SPANS.on else None
-            item = results.get()
-            if span is not None:
-                SPANS.end(span)
-            if item is None:
-                done_workers += 1
-                continue
-            if errors:
-                continue  # drain only; a failure is already recorded
-            data, pts = item
-            t0 = time.perf_counter_ns()
-            try:
-                resolver = dispatch(data)
-            except Exception as e:  # noqa: BLE001 — surfaced after drain
-                errors.append(e)
-                continue
-            dispatch_us += (time.perf_counter_ns() - t0) // 1000
-            frames_scanned += len(pts)
-            if heat_acc is not None and scan_input == "grids":
-                heat_acc += (data >= cfg.vectors_needed).sum(
-                    axis=0, dtype=np.int64)
-            elif heat_acc is not None:
-                # words is the same little-endian bit layout viewed as
-                # int32 lanes — one byte view, shared accumulation
-                packed = (data if scan_input == "bits" else
-                          data.view(np.uint8).reshape(len(pts), geom.gh, -1))
-                heat_acc += np.unpackbits(
-                    packed, axis=2, bitorder="little")[:, :, :geom.gw].sum(
-                        axis=0, dtype=np.int64)
-            pending.append((pts, resolver))
-
-        motion_ts: list[float] = []
-        t0 = time.perf_counter_ns()
-        try:
-            for pts, resolver in pending:
-                motion = resolver()
-                motion_ts.extend(pts[motion].tolist())
-        except Exception as e:  # noqa: BLE001
-            errors.append(e)
-        resolve_us = (time.perf_counter_ns() - t0) // 1000
+        motion_ts, frames_scanned, heat, dispatch_us, resolve_us = \
+            self._feed(payload, results, n_threads, errors)
 
         span = SPANS.begin("scan.join") if SPANS.on else None
         join_t0 = time.perf_counter_ns()
@@ -657,34 +314,75 @@ class ProcessingPipeline:
         if errors:
             raise RuntimeError(errors[0])
 
-        scan_us = (time.perf_counter_ns() - t_scan) // 1000
         # the sub-phases, in batch mode too (only a single file prints
         # the table); dispatch and resolve are host time: the detector's
         # calls, and the wait for their batches
-        TimingCollector.record(f"parallel_scan[{kind}]", scan_us)
-        tot = native.ScanTiming()
-        for tm in timings:
-            tot.seek_us += tm.seek_us
-            tot.decode_us += tm.decode_us
-            tot.analyze_us += tm.analyze_us
-        TimingCollector.record("  ├─warmup(build)", warmup_us)
-        TimingCollector.record("  ├─setup", setup_us)
-        TimingCollector.record("  ├─workers", workers_us)
-        TimingCollector.record(f"  │ ├─init ({n_threads}T)", sum(init_us))
-        TimingCollector.record(f"  │ ├─seek ({n_threads}T)", tot.seek_us)
-        TimingCollector.record(f"  │ ├─decode ({n_threads}T)", tot.decode_us)
-        TimingCollector.record(f"  │ └─scatter ({n_threads}T)",
-                               tot.analyze_us)
-        TimingCollector.record("  ├─dispatch", dispatch_us)
-        TimingCollector.record("  ├─resolve", resolve_us)
-        TimingCollector.record("  └─join", join_us)
+        TimingCollector.record(f"parallel_scan[{kind}]",
+                               (time.perf_counter_ns() - t_scan) // 1000)
+        n = f"({n_threads}T)"
+        for name, us in (
+                ("  ├─warmup(build)", warmup_us), ("  ├─setup", setup_us),
+                ("  ├─workers", workers_us), (f"  │ ├─init {n}", sum(init_us)),
+                (f"  │ ├─seek {n}", sum(tm.seek_us for tm in timings)),
+                (f"  │ ├─decode {n}", sum(tm.decode_us for tm in timings)),
+                (f"  │ └─scatter {n}", sum(tm.analyze_us for tm in timings)),
+                ("  ├─dispatch", dispatch_us), ("  ├─resolve", resolve_us),
+                ("  └─join", join_us)):
+            TimingCollector.record(name, us)
 
-        if heat_acc is not None and frames_scanned:
-            self._write_heatmap(heat_acc, frames_scanned, geom)
+        if heat is not None and frames_scanned:
+            self._write_heatmap(heat, frames_scanned, payload.geom)
 
-        frames_with_mvs = sum(tm.frames_with_mvs for tm in timings)
-        return ScanResult(motion_ts, frames_scanned, frames_with_mvs,
-                          chunk_id)
+        return ScanResult(motion_ts, frames_scanned,
+                          sum(tm.frames_with_mvs for tm in timings), chunk_id)
+
+    def _feed(self, payload, results: queue.Queue, n_workers: int,
+              errors: list) -> tuple:
+        """The device feeder: dispatch each decoded part as it comes and
+        resolve them in order once the workers are done, so H2D and compute
+        overlap decode; it drains on after a failure, or the workers block
+        on the bounded queue.  Returns the motion timestamps, the frames,
+        the heatmap's cell counts (None without one) and the host time (us)
+        of the dispatches and of the resolve."""
+        dispatch_us = frames = done_workers = 0
+        pending: list[tuple[np.ndarray, object]] = []
+        # optional spatial analytics riding the already-decoded masks
+        geom = payload.geom
+        heat = (np.zeros((geom.gh, geom.gw), np.int64)
+                if self.cfg.heatmap_path and payload.activity is not None
+                else None)
+        while done_workers < n_workers:
+            span = SPANS.begin("scan.feeder_wait") if SPANS.on else None
+            item = results.get()
+            if span is not None:
+                SPANS.end(span)
+            if item is None:
+                done_workers += 1
+                continue
+            if errors:
+                continue  # drain only; a failure is already recorded
+            data, pts = item
+            t0 = time.perf_counter_ns()
+            try:
+                resolver = payload.dispatch(data)
+            except Exception as e:  # noqa: BLE001 — surfaced after drain
+                errors.append(e)
+                continue
+            dispatch_us += (time.perf_counter_ns() - t0) // 1000
+            frames += len(pts)
+            if heat is not None:
+                heat += payload.activity(data)
+            pending.append((pts, resolver))
+
+        motion_ts: list[float] = []
+        t0 = time.perf_counter_ns()
+        try:
+            for pts, resolver in pending:
+                motion_ts.extend(pts[resolver()].tolist())
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+        resolve_us = (time.perf_counter_ns() - t0) // 1000
+        return motion_ts, frames, heat, dispatch_us, resolve_us
 
     def _write_heatmap(self, counts: np.ndarray, frames: int, geom) -> None:
         """Per-video spatial activity JSON (MVT_HEATMAP names a directory

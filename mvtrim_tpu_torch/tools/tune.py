@@ -44,7 +44,7 @@ from ..core import oracle
 from ..core.config import Config
 from ..core.types import GridGeometry
 from ..io import native
-from ..models.mv_detector import resolve_backend
+from ..models.staging import resolve_backend
 from ..ops.mv_vote import threshold_bound
 from ..ops.sad import sad_threshold_sum
 from ..ops.segmentation import segment_op

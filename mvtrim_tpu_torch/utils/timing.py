@@ -30,10 +30,14 @@ from __future__ import annotations
 import array
 import contextlib
 import itertools
+import json
+import os
 import sys
 import threading
 import time
 from typing import NamedTuple
+
+from . import logging as log
 
 
 class TimingCollector:
@@ -289,6 +293,56 @@ def follow_profiler() -> bool:
                                     "_is_profiler_enabled", False):
         return False
     return SPANS.start()
+
+
+_traces = itertools.count()
+
+
+@contextlib.contextmanager
+def held_trace(profile_dir: str):
+    """Hold MVT_PROFILE_DIR's torch.profiler trace (once in a process:
+    the profiler is process-global) around a batch or a single file, and
+    write it with the program's spans as one Chrome trace into the
+    directory.  Without it, a ``torch.profiler`` session the caller holds
+    turns the program's spans on for the while (``follow_profiler``)."""
+    prof = None
+    if profile_dir:
+        import torch
+        from torch import profiler as tp
+
+        acts = [tp.ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(tp.ProfilerActivity.CUDA)
+        path = os.path.join(profile_dir,
+                            f"trace_{os.getpid()}_{next(_traces)}.json")
+        try:
+            prof = tp.profile(activities=acts)
+            prof.__enter__()
+        except RuntimeError as e:
+            prof = None
+            log.warn(f"profiler trace unavailable ({e}); "
+                     "continuing unprofiled")
+    owns_spans = prof is not None and start_recording()
+    following = prof is None and follow_profiler()
+    try:
+        yield
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            spans = stop_recording() if owns_spans else SPANS.recorded()
+            try:
+                os.makedirs(profile_dir, exist_ok=True)
+                prof.export_chrome_trace(path)
+                with open(path) as f:
+                    doc = json.load(f)
+                doc["traceEvents"].extend(chrome_events(spans, int(
+                    doc.get("baseTimeNanoseconds", 0)), os.getpid()))
+                with open(path, "w") as f:
+                    json.dump(doc, f)
+            except (OSError, ValueError) as e:
+                log.warn(f"profiler trace export failed: {e}")
+        elif following:
+            SPANS.pause()
 
 
 def chrome_events(spans: list[Span], base_ns: int, pid: int) -> list[dict]:

@@ -27,9 +27,9 @@ import pytest
 from mvtrim_tpu_torch.bench import replay
 from mvtrim_tpu_torch.core import Config
 from mvtrim_tpu_torch.io import native
-from mvtrim_tpu_torch.pipeline import pipeline
-from mvtrim_tpu_torch.pipeline.pipeline import (ProcessingPipeline,
-                                                mv_restart_capacity)
+from mvtrim_tpu_torch.pipeline import payloads
+from mvtrim_tpu_torch.pipeline.payloads import mv_restart_capacity
+from mvtrim_tpu_torch.pipeline.pipeline import ProcessingPipeline
 from mvtrim_tpu_torch.utils import timing
 from mvtrim_tpu_torch.utils.timing import TimingCollector
 from trimbench import scene, spec
@@ -275,7 +275,7 @@ def test_sub_calls_restart_as_at_the_power_of_two_alone(
                     chunk_frames_cap=frames_cap,
                     ffmpeg_bin=replay.FAKE_FFMPEG)
     got = run(fx, cfg, tmp_path, monkeypatch, "got")
-    monkeypatch.setattr(pipeline, "mv_restart_capacity",
+    monkeypatch.setattr(payloads, "mv_restart_capacity",
                         lambda m, unseen=False: pow2(m))
     alone = run(fx, cfg, tmp_path, monkeypatch, "alone")
     check_calls(got.calls, cfg)

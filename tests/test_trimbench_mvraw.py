@@ -5,9 +5,9 @@ The payload (``trimbench/scene/mvs.py``) is served as the native
 ``scan_mvs`` and the replay reader serve it; the plain reference
 (``trimbench/reference/mvs.py``) decides as the port's plain K4+K5 and the
 oracle do; whole runs of the cell are correct, and wrong under three
-faults planted in the pipeline's overflow restart; the restart's and the
-live rows' spans carry their values; the cell's readers read them, and
-read nothing where there is nothing.
+faults planted in the raw-MV payload's overflow restart; the restart's
+and the live rows' spans carry their values; the cell's readers read
+them, and read nothing where there is nothing.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from mvtrim_tpu_torch.core import oracle
 from mvtrim_tpu_torch.core.types import GridGeometry
 from mvtrim_tpu_torch.io import native
 from mvtrim_tpu_torch.ops import mv_vote
-from mvtrim_tpu_torch.pipeline import pipeline as pipeline_module
+from mvtrim_tpu_torch.pipeline import payloads
 from mvtrim_tpu_torch.pipeline.pipeline import ProcessingPipeline
 from mvtrim_tpu_torch.utils import timing
 from mvtrim_tpu_torch.utils.timing import TimingCollector
@@ -321,12 +321,12 @@ def truncate(counts, cap) -> bool:
 
 FAULTS = {
     "decides_truncated_lists": (
-        "if raw_n and (counts < 0).any():",
-        "if raw_n and _truncate(counts, cap):", "files_wrong_motion"),
+        "if n and (counts < 0).any():",
+        "if n and _truncate(counts, chunk.cap):", "files_wrong_motion"),
     "keeps_replayed_duplicates": (
-        "skip_dup = emitted", "skip_dup = 0", "files_wrong_frames"),
+        "chunk.skip = chunk.emitted", "chunk.skip = 0", "files_wrong_frames"),
     "counts_side_data_twice": (
-        "timings[widx].frames_with_mvs = mv_base", "pass",
+        "chunk.timing.frames_with_mvs = chunk.mv_base", "pass",
         "files_wrong_frames"),
 }
 # one frame a scan call: a chunk's first frame (an I-frame) is queued
@@ -335,14 +335,14 @@ FAULT_ENV = {"MVT_MV_CAPACITY": "256", "MVT_CHUNK_FRAMES_CAP": "1"}
 
 
 def planted(old: str, new: str):
-    """``ProcessingPipeline._parallel_scan`` with one line changed."""
-    source = textwrap.dedent(inspect.getsource(
-        ProcessingPipeline._parallel_scan))
+    """The raw-MV payload's chunk decode (``payloads.MvRaw.part``) with one
+    line changed."""
+    source = textwrap.dedent(inspect.getsource(payloads.MvRaw.part))
     assert source.count(old) == 1, old
-    namespace = dict(vars(pipeline_module), _truncate=truncate)
-    exec(compile(source.replace(old, new), pipeline_module.__file__,
-                 "exec"), namespace)
-    return namespace["_parallel_scan"]
+    namespace = dict(vars(payloads), _truncate=truncate)
+    exec(compile(source.replace(old, new), payloads.__file__, "exec"),
+         namespace)
+    return namespace["part"]
 
 
 def test_the_faults_run_is_correct_unbroken():
@@ -353,8 +353,7 @@ def test_the_faults_run_is_correct_unbroken():
 @pytest.mark.parametrize("fault", FAULTS)
 def test_a_broken_restart_is_not_correct(monkeypatch, fault):
     old, new, number = FAULTS[fault]
-    monkeypatch.setattr(ProcessingPipeline, "_parallel_scan",
-                        planted(old, new))
+    monkeypatch.setattr(payloads.MvRaw, "part", planted(old, new))
     result = run_small(4, FAULT_ENV, [20, 40])
     assert not result["correct"]
     assert result["checks"][number]["value"] > 0
